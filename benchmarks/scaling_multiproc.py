@@ -9,10 +9,11 @@ every step (the collective a training step would have).
 
 On this environment the processes share 2 physical cores, so the absolute
 numbers are indicative; the artifact's point is per-process-count rows from
-the genuine distributed code path plus the in-process virtual-mesh rows.  On
-a TPU pod slice the identical worker runs per-host over ICI.
+the genuine distributed code path plus the in-process virtual-mesh rows.
+Every worker forces the CPU platform: several JAX processes must not share
+one GPU.
 
-Run:  python benchmarks/scaling_multiproc.py            # writes SCALING JSON
+Run:  python benchmarks/scaling_multiproc.py            # writes scaling_artifacts/*.json
       python benchmarks/scaling_multiproc.py worker <port> <pid> <n>  # internal
 """
 
@@ -158,8 +159,7 @@ def main() -> int:
                      "density": "gaussian", "out_dtype": "bfloat16"},
         "environment": "2 physical cores, each worker pinned to its own core "
         "(taskset); 1 virtual CPU device per process; jax.distributed over "
-        "local gRPC (no TPU pod available — the same worker runs per-host "
-        "over ICI on real hardware)",
+        "local gRPC",
         "multiprocess_rows": rows,
         "virtual_mesh_rows": (virt or {}).get("rows"),
         "virtual_mesh_note": "8 virtual devices oversubscribe the same 2 "
@@ -167,7 +167,8 @@ def main() -> int:
         "construction, so per-device efficiency ~1/d is a host artifact — "
         "the multiprocess rows are the meaningful scaling evidence here",
     }
-    path = REPO / os.environ.get("SCALING_ARTIFACT", "SCALING_r05.json")
+    path = REPO / os.environ.get("SCALING_ARTIFACT", "scaling_artifacts/scaling_multiproc.json")
+    path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(artifact, indent=2) + "\n")
     print(json.dumps(artifact))
     print(f"wrote {path}", file=sys.stderr)

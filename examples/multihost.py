@@ -1,10 +1,11 @@
-"""Multi-host / multi-chip scaling example.
+"""Multi-host / multi-device scaling example.
 
-On a TPU pod slice, launch one copy of this script per host (e.g. with
-``gcloud compute tpus tpu-vm ssh --worker=all``); ``jax.distributed`` wires
-the processes into one mesh and each host feeds its local shard of the
-molecule library.  On a single host it runs on whatever devices exist —
-simulate a pod with:
+On a cluster, launch one copy of this script per host, with
+``jax.distributed`` told the coordinator address, the process count and
+each process's id; it wires the processes into one mesh and each host feeds
+its local shard of the molecule library.  One process drives all the GPUs of
+its host.  On a single host it runs on whatever devices exist — simulate
+several with:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/multihost.py
@@ -13,7 +14,7 @@ Multi-process correctness: jit inputs on a multi-process runtime must be
 GLOBAL arrays whose shards live on each process's own devices — built with
 ``jax.make_array_from_process_local_data`` (wrapped here as
 ``parallel.globalize_batch``).  Building global-shape arrays with
-``jnp.asarray`` per process works single-host but fails on a real pod with
+``jnp.asarray`` per process works single-host but fails across hosts with
 non-addressable-shard errors.
 """
 
@@ -28,7 +29,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax
 
 if os.environ.get("JAX_PLATFORMS") == "cpu":
-    # some TPU plugins ignore the env var; the config update is authoritative
     jax.config.update("jax_platforms", "cpu")
 
 from molvoxel_tpu.core import GridSpec

@@ -30,6 +30,7 @@ except ImportError:
     print("this example needs optax")
     sys.exit(0)
 
+from molvoxel_tpu.data.fixtures import LIGAND_SDF
 from molvoxel_tpu.core import GridSpec
 from molvoxel_tpu.core.transform import apply_quaternion, random_quaternion
 from molvoxel_tpu.data.parsers import read_sdf
@@ -42,7 +43,7 @@ def rmsd(a, b):
 
 def main(steps=400, seed=0, dim=32):
     spec = GridSpec(resolution=0.5, dimension=dim)
-    lig = read_sdf("/root/reference/test/10gs/10gs_ligand.sdf")
+    lig = read_sdf(str(LIGAND_SDF))
     coords0 = jnp.asarray(lig.coords - lig.coords.mean(0), jnp.float32)
     v = coords0.shape[0]
     weights = jnp.ones((v, 1), jnp.float32)

@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from molvoxel_tpu.data.fixtures import LIGAND_SDF
 from molvoxel_tpu.core import GridSpec
 from molvoxel_tpu.data import SDFBatchFeeder, read_sdf
 from molvoxel_tpu.data.parsers import SimpleMolecule, write_sdf
@@ -52,7 +53,7 @@ def make_library(query: SimpleMolecule, path: Path, rng, n_decoys=30):
 
 def main(n_decoys: int = 30, dim: int = DIM):
     spec = GridSpec(resolution=0.5, dimension=dim)
-    query = read_sdf("/root/reference/test/10gs/10gs_ligand.sdf").without_hydrogens()
+    query = read_sdf(str(LIGAND_SDF)).without_hydrogens()
     query = SimpleMolecule(coords=query.coords - query.coords.mean(0),
                            symbols=query.symbols, bonds=[], name="query")
     rng = np.random.default_rng(0)

@@ -23,16 +23,16 @@ from molvoxel_tpu.data import (
     read_pdb,
     read_sdf,
 )
+from molvoxel_tpu.data.fixtures import LIGAND_SDF, POCKET_PDB
 from molvoxel_tpu.viz import Visualizer
 
-OUT = Path(sys.argv[1]) if len(sys.argv) > 1 else Path("/tmp/molvoxel_tpu_example")
-FIXTURES = Path("/root/reference/test/10gs")
+OUT = Path(sys.argv[1]) if len(sys.argv) > 1 else Path("voxelize_complex_artifacts")
 
 
 def main():
     OUT.mkdir(parents=True, exist_ok=True)
-    ligand = read_sdf(FIXTURES / "10gs_ligand.sdf").without_hydrogens()
-    pocket = read_pdb(FIXTURES / "10gs_pocket_nowater.pdb").without_hydrogens()
+    ligand = read_sdf(LIGAND_SDF).without_hydrogens()
+    pocket = read_pdb(POCKET_PDB).without_hydrogens()
     center = ligand.coords.mean(0)
 
     atom_getter = AtomTypeGetter(["C", "N", "O", "S"])

@@ -1,4 +1,4 @@
-"""molvoxel_tpu — a TPU-native molecular voxelization framework.
+"""molvoxel_tpu — molecular voxelization in JAX, with a fused GPU deposit kernel.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 SeonghwanSeo/molvoxel: point clouds (atom coordinates, radii, channel data)

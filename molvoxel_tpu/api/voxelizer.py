@@ -11,8 +11,7 @@ JAX path shared by every mode:
   like the reference (base/voxelizer.py:101-130).
 - ``forward_types`` renders integer types through one-hot weights — a matmul
   instead of the reference torch backend's ``scatter_add_``
-  (torch/voxelizer.py:378), because scatter serializes on TPU and matmul is
-  MXU-native.
+  (torch/voxelizer.py:378): identical sums without scatter conflicts.
 - ``out_grid`` keeps the reference in-place contract for host arrays: when a
   numpy ``out_grid`` is passed the result is copied into it and the same
   object is returned (asserted by /root/reference/test/test_run_numpy.py:46-47).
@@ -24,7 +23,7 @@ JAX path shared by every mode:
 Deviations (all deliberate, SURVEY.md sections 2.6/7.3):
 - All compute is float32 by default (the reference forces float64 through
   scipy ``cdist``); ``precision=64`` is honored when jax x64 is enabled.
-- Types arrays are int32 (reference: int16) — int32 is the native TPU int.
+- Types arrays are int32 (reference: int16) — int32 is JAX's default int.
 - Mutating ``radii_type``/``density_type`` properties rebuilds the frozen
   config; each distinct config compiles (and caches) its own XLA program.
 """
@@ -83,7 +82,7 @@ def _pipeline(
 
 
 class Voxelizer:
-    """Drop-in style voxelizer with a single TPU-first compute path."""
+    """Drop-in style voxelizer with a single JAX compute path."""
 
     LIB = "JAX"
     RADII_TYPE_LIST = ["scalar", "channel-wise", "atom-wise"]
@@ -127,8 +126,7 @@ class Voxelizer:
                 "precision=64 requested but jax x64 is disabled; computing in "
                 "float32. Set JAX_ENABLE_X64=1 (or jax.config.update("
                 "'jax_enable_x64', True) before first use) for true f64 — "
-                "recommended only on CPU (the parity-suite escape hatch); TPU "
-                "hardware has no f64 units.",
+                "recommended only on CPU (the parity-suite escape hatch).",
                 UserWarning,
                 stacklevel=2,
             )
@@ -439,8 +437,8 @@ class Voxelizer:
         the library-wide count to pin one compilation.
 
         ``out_dtype``: "float32" (default) or "bfloat16" — bf16 grids halve
-        the HBM write (the measured throughput wall) and feed TPU CNN training
-        natively; accumulation stays f32.
+        the bytes written and feed CNN training natively; accumulation stays
+        f32.
         """
         from ..data.pipeline import pad_point_clouds, types_to_onehot
         from ..ops.batch import voxelize_batch

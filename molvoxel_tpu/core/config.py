@@ -1,4 +1,4 @@
-"""Frozen, hashable configuration objects for the TPU voxelizer.
+"""Frozen, hashable configuration objects for the voxelizer.
 
 The reference keeps geometry state mutable on a class instance
 (/root/reference/molvoxel/voxelizer/base/voxelizer.py:15-38 — resolution,
@@ -142,8 +142,7 @@ def atom_bucket(num_atoms: int, minimum: int = 128) -> int:
 
     Buckets limit jit recompiles: V is padded to the next bucket in
     {128, 256, 384, 512, 768, 1024, ...} — powers of two plus 3/4 points,
-    all multiples of 128 (the TPU lane width, required by the Pallas kernel's
-    atom-chunk block specs).
+    all multiples of 128.
     """
     n = max(int(num_atoms), 1)
     if n <= minimum:

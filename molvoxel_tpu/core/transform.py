@@ -3,12 +3,11 @@
 The reference samples rotations with the Marsaglia/Shoemake uniform-quaternion
 formula using the *global* numpy RNG and applies them via explicit quaternion
 products q*p*q^-1 (/root/reference/molvoxel/voxelizer/numpy/_quaternion.py:13-50,
-numpy/transform.py:43-80).  The TPU-native design differs in two deliberate
-ways:
+numpy/transform.py:43-80).  This design differs in two deliberate ways:
 
 - RNG is explicit: every random transform takes a ``jax.random.PRNGKey``,
   making transforms pure functions that compose with jit/vmap/shard_map.
-- The rotation is applied as a 3x3 matrix product (MXU-friendly) built from
+- The rotation is applied as a 3x3 matrix product built from
   the unit quaternion; for unit quaternions this is mathematically identical
   to the reference's q*p*q^-1 Hamilton-product chain.
 

@@ -228,6 +228,12 @@ _SDF_BOND_ORDERS = {"SINGLE": 1, "DOUBLE": 2, "TRIPLE": 3, "AROMATIC": 4}
 
 def write_sdf(mol: SimpleMolecule, path: str | Path) -> None:
     """Write a SimpleMolecule as a single-record SDF (V2000)."""
+    with open(path, "w") as fh:
+        fh.write(sdf_record(mol))
+
+
+def sdf_record(mol: SimpleMolecule) -> str:
+    """One V2000 SDF record (ending in ``$$$$``) for a SimpleMolecule."""
     lines = [mol.name or "molvoxel_tpu", "  molvoxel_tpu", ""]
     lines.append(f"{mol.num_atoms:3d}{mol.num_bonds:3d}  0  0  0  0  0  0  0  0999 V2000")
     for (x, y, z), sym in zip(mol.coords, mol.symbols):
@@ -236,8 +242,7 @@ def write_sdf(mol: SimpleMolecule, path: str | Path) -> None:
         lines.append(f"{i + 1:3d}{j + 1:3d}{_SDF_BOND_ORDERS.get(t, 1):3d}  0")
     lines.append("M  END")
     lines.append("$$$$")
-    with open(path, "w") as fh:
-        fh.write("\n".join(lines) + "\n")
+    return "\n".join(lines) + "\n"
 
 
 def write_pdb(mol: SimpleMolecule, path: str | Path) -> None:

@@ -1,8 +1,8 @@
 """Host-side batching pipeline: ragged molecules -> padded device batches.
 
 The reference has no batch axis (its timing harness loops in Python,
-/root/reference/test/test_time_numpy.py:11-15).  TPU throughput requires
-fixed-shape batches: this module pads variable-size point clouds into
+test/test_time_numpy.py:11-15).  Device throughput requires fixed-shape
+batches: this module pads variable-size point clouds into
 bucketed (B, Vp, ...) arrays + validity masks that feed ops.batch /
 parallel.sharded directly.
 """
@@ -57,7 +57,7 @@ def pad_point_clouds(
     """Pad a list of (coords (V_i, 3), weights (V_i, C)) to one batch.
 
     Vp is the common atom bucket (max V_i rounded up, core.config.small_atom_bucket
-    — 32/64 for small molecules so the TPU kernel can pack several per chunk)
+    — 32/64 for small molecules)
     unless ``bucket`` is given.  Padded atoms get zero weights, radius 1, and
     mask False — they deposit nothing.
     """
@@ -93,8 +93,8 @@ def pad_point_clouds(
 
 
 def types_to_onehot(types: np.ndarray, num_channels: int) -> np.ndarray:
-    """(V,) int types -> (V, C) one-hot float32 weights (the MXU-native form
-    of the reference's scatter-by-type)."""
+    """(V,) int types -> (V, C) one-hot float32 weights (the matmul form of
+    the reference's scatter-by-type)."""
     out = np.zeros((types.shape[0], num_channels), np.float32)
     out[np.arange(types.shape[0]), np.asarray(types, np.int64)] = 1.0
     return out

@@ -18,7 +18,7 @@ Differences from the reference worth knowing:
 - The reference's documented-but-broken coords override
   (``kwargs.get("kwargs", ...)`` instead of ``"coords"``,
   pointcloud.py:72,232 — SURVEY.md Q4) works here: pass ``coords=`` to run().
-- Types are int32 (TPU-native int; reference uses int16).
+- Types are int32 (JAX's default int; reference uses int16).
 
 Bond channels place pseudo-atoms at bond midpoints, concatenated after the
 atom block, exactly like the reference (pointcloud.py:79-89).

@@ -1,4 +1,4 @@
-"""PyTorch interoperability: TPU-voxelized grids into torch training loops.
+"""PyTorch interoperability: voxelized grids into torch training loops.
 
 The reference's production backend *is* PyTorch (its voxelizer subclasses
 feed torch models directly, /root/reference/molvoxel/voxelizer/torch/
@@ -109,7 +109,7 @@ class VoxelGridDataset(_IterableDataset):
       tail slots whose grids are all-zero).
 
     Use with ``torch.utils.data.DataLoader(ds, batch_size=None)`` — batching
-    happens here (fixed TPU-shaped batches), the DataLoader just iterates.
+    happens here (fixed-shape device batches), the DataLoader just iterates.
     Voxelization is dispatched asynchronously and double-buffered against
     the previous batch's torch conversion.
 

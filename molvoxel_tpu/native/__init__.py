@@ -1,6 +1,6 @@
 """Native host-side components (C++, bound via ctypes).
 
-The compute path is JAX/XLA/Pallas on the TPU; these helpers keep the *host*
+The compute path is JAX/XLA/Pallas on the GPU; these helpers keep the *host*
 side of the pipeline (molecule parsing / data feeding) off the Python
 interpreter's critical path.  The shared object is built on demand with g++
 (``python -m molvoxel_tpu.native.build`` or automatically on first import);

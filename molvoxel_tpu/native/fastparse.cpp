@@ -1,6 +1,6 @@
 // Fast batch SDF (V2000) parser for the host data-feed path.
 //
-// At TPU-side throughputs of >100k ligand voxelizations/s the Python-side
+// At device throughputs of many thousand ligand voxelizations/s the Python-side
 // molecule parsing becomes the pipeline bottleneck (SURVEY.md section 7.3:
 // "Host feed throughput ... RDKit parsing will not keep up single-threaded").
 // This translation unit parses a whole multi-record SDF buffer in one pass

@@ -71,8 +71,7 @@ def wire_assemble_native(coords, types, counts, vp, scale, presort, cell_lb, cel
 
     None when the native lib is absent (data/feed.py composes the numpy
     fallback).  The GIL is released for the whole call (ctypes), so assembly
-    overlaps the stream driver thread — the numpy path could not
-    (docs/DESIGN.md 3b: host assembly cost ~16k mols/s of the stream lane).
+    overlaps the stream driver thread — the numpy path could not.
     """
     lib = _load()
     if lib is None:

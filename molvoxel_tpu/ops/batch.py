@@ -1,11 +1,10 @@
 """Batched voxelization over padded molecule batches.
 
-The reference has no real batch axis — its timing harness loops Python-side
-over ``out_grid[i]`` slices (/root/reference/test/test_time_numpy.py:11-15).
-Here the batch is a first-class axis: on TPU it maps to the natively batched
-Pallas kernel (leading batch grid dimension, ops/pallas_deposit.py); on other
-backends it vmaps the dense XLA op.  This is also the axis data-parallel
-sharding splits across chips (parallel/).
+The reference has no real batch axis: its timing harness loops Python-side
+over ``out_grid[i]`` slices.  Here the batch is a first-class axis: on the GPU
+it is the second grid axis of the fused deposit kernel
+(ops/pallas_deposit.py); on the CPU it vmaps the dense XLA op.  This is also
+the axis data-parallel sharding splits across devices (parallel/).
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import jax.numpy as jnp
 from ..core.config import GridSpec
 from ..core.transform import do_random_transform
 from .dense import voxelize_dense, voxelize_dense_channelwise
-from .voxelize import default_batch_impl, notrunc_use_pallas
+from .voxelize import default_impl, notrunc_use_pallas
 
 
 @functools.partial(
@@ -72,9 +71,9 @@ def voxelize_batch(
       random_translation: scalar magnitude (may be traced).
       random_rotation: static bool.
       d_offset/d_count: optional depth slab (depth-sharded execution).
-      out_dtype: "float32" (parity default) or "bfloat16" — bf16 halves the
-        grid bytes written to HBM, the measured wall of both hot paths, and
-        is the natural CNN-training input dtype.  Accumulation stays f32.
+      out_dtype: "float32" (parity default), "bfloat16" or "float8_e4m3fn":
+        narrower grids write fewer bytes and are the natural CNN-training
+        input dtype.  Accumulation stays f32.
       presorted: atoms already arrive in spatially-local (Morton) order —
         e.g. the data pipeline sorted them once on the host
         (data/pipeline.py) — so no in-graph sort is needed.
@@ -82,80 +81,49 @@ def voxelize_batch(
     Returns:
       (B, C, Dl, H, W) of ``out_dtype``.
     """
-    b = coords.shape[0]
     if impl == "auto":
-        impl = default_batch_impl()
+        impl = default_impl()
     rt = jnp.asarray(random_translation, coords.dtype)
 
     if centers is not None:
         coords = coords - centers[:, None, :].astype(coords.dtype)
 
+    notrunc = density_type == "gaussian_notrunc"
+    on_kernel = impl == "pallas" and not (
+        notrunc and (channelwise or not notrunc_use_pallas(coords.shape[1], spec.dimension, out_dtype))
+    )
     # Spatial sort BEFORE the random transform: rigid transforms preserve
     # locality, so the Morton order computed from the un-augmented coords
-    # keeps the kernel's 128-lane chunks compact for every augmented sample.
-    # Sorting here (instead of inside the kernel wrapper, post-transform)
-    # makes the argsort loop-invariant in augmentation loops and lets real
-    # pipelines skip it entirely via host-side pre-sorting (``presorted``) —
-    # the device argsort was ~200 us/mol of the 367 us/mol protein path
-    # (benchmarks/experiments/protein_probe3.py).
-    if (
-        impl == "pallas"
-        and (
-            density_type != "gaussian_notrunc"
-            or notrunc_use_pallas(coords.shape[1], spec.dimension, d_count)
-        )
-        and not channelwise
-        and coords.shape[1] > 128
-        and not presorted
-    ):
+    # keeps the kernel's atom chunks compact for every augmented sample, the
+    # argsort is loop-invariant in augmentation loops, and pipelines that
+    # sort on the host skip it entirely (``presorted``).
+    if on_kernel and not presorted:
         from .pallas_deposit import _sort_atoms_spatially
 
-        r_atoms = radii if radii.ndim == 2 else jnp.broadcast_to(
-            jnp.asarray(radii, jnp.float32)[None, :], coords.shape[:2]
-        )
-        coords, weights, radii, mask = _sort_atoms_spatially(coords, weights, r_atoms, mask, spec, 0)
+        if not channelwise and radii.ndim == 1:
+            radii = jnp.broadcast_to(jnp.asarray(radii, jnp.float32)[None, :], coords.shape[:2])
+        coords, weights, radii, mask = _sort_atoms_spatially(coords, weights, radii, mask, spec)
         presorted = True
 
     coords = jax.vmap(lambda k, crd: do_random_transform(k, crd, None, rt, random_rotation))(keys, coords)
 
-    if density_type == "gaussian_notrunc" and not (
-        impl == "pallas"
-        and not channelwise
-        and notrunc_use_pallas(coords.shape[1], spec.dimension, d_count)
-    ):
+    if notrunc and not on_kernel:
         from .separable import voxelize_separable_batch, voxelize_separable_batch_channelwise
 
-        kw = dict(spec=spec, sigma=sigma, mask=mask, d_offset=d_offset, d_count=d_count,
-                  materialize=materialize, out_dtype=out_dtype)
-        if channelwise:
-            return voxelize_separable_batch_channelwise(coords, weights, radii, **kw)
-        pack = _choose_pack_separable(coords.shape[1], weights.shape[2])
-        if pack > 1:
-            fn = functools.partial(voxelize_separable_batch, **kw_nomask(kw))
-            return _packed_batch(fn, coords, weights, radii, mask, pack)
-        return voxelize_separable_batch(coords, weights, radii, **kw)
+        fn = voxelize_separable_batch_channelwise if channelwise else voxelize_separable_batch
+        return fn(coords, weights, radii, spec=spec, sigma=sigma, mask=mask, d_offset=d_offset,
+                  d_count=d_count, materialize=materialize, out_dtype=out_dtype)
 
-    if impl == "pallas":
-        # custom_vjp wrapper: batched pallas forward + the kernel backward,
-        # so jax.grad of a batched (training) step works at kernel speed
+    if on_kernel:
+        # custom_vjp wrapper: kernel forward, dense-path VJP backward
         from .autodiff import voxelize_pallas_batch_ad
 
-        def run_ad(crd, w, r, *, mask, presorted):
-            return voxelize_pallas_batch_ad(
-                crd, w, r, mask, d_offset, spec, density_type, sigma, channelwise,
-                d_count, out_dtype, presorted,
-            )
-
-        if channelwise:
-            # channel expansion onto the v5 atom-wise kernel (pallas_deposit)
-            return run_ad(coords, weights, radii, mask=mask, presorted=presorted)
-        pack = _choose_pack(coords.shape[1], weights.shape[2])
-        if pack > 1:
-            def fn(crd, w, r, mask=None):
-                return run_ad(crd, w, r, mask=mask, presorted=presorted)
-
-            return _packed_batch(fn, coords, weights, radii, mask, pack)
-        return run_ad(coords, weights, radii, mask=mask, presorted=presorted)
+        return voxelize_pallas_batch_ad(
+            coords, weights, radii, mask, d_offset, spec, density_type, sigma, channelwise,
+            d_count, out_dtype, presorted,
+        )
+    if impl != "dense":
+        raise ValueError(f"unknown impl {impl!r}; expected 'auto', 'dense' or 'pallas'")
 
     fn = voxelize_dense_channelwise if channelwise else voxelize_dense
     single = functools.partial(
@@ -175,26 +143,25 @@ def voxelize_batch(
     return out
 
 
+def pick_slab_depth(
+    spec: GridSpec, num_channels: int = 4, batch_size: int = 1, bytes_limit: int | None = None
+) -> int | None:
+    """Depth-slab size for grids too large to hold whole on the device.
 
-def pick_slab_depth(spec: GridSpec, num_channels: int = 4) -> int | None:
-    """Depth-slab size for grids whose full depth exceeds the kernel budget.
-
-    None = the whole-row v5 kernel holds the full (8, D, hwt) output tile in
-    VMEM (every standard dimension <= 128); otherwise the largest
-    8-multiple divisor of D whose slab tile fits — 64 for 256^3.  Drives
-    the full-grid assembly path (voxelize_batch_sliced, CLI --dimension 256).
-    """
-    from .pallas_deposit import _OUT_BUDGET, _row_tile
-
+    None = the full (B, C, D, H, W) float32 grid fits in an eighth of the
+    device's memory (``bytes_limit``, by default what the first device
+    reports); otherwise the largest divisor of D whose slab does.  Drives
+    the full-grid assembly path (voxelize_batch_sliced, CLI --dimension
+    256).  A device that does not report its memory (the CPU) never
+    slices."""
+    if bytes_limit is None:
+        bytes_limit = (jax.devices()[0].memory_stats() or {}).get("bytes_limit")
     dim = spec.dimension
-    hwt = _row_tile(dim * dim, dim)
-    if hwt is None or 8 * dim * hwt * 4 <= _OUT_BUDGET:
+    plane = batch_size * max(num_channels, 1) * dim * dim * 4
+    if bytes_limit is None or dim * plane <= bytes_limit // 8:
         return None
-    best = None
-    for slab in range(8, dim, 8):
-        if dim % slab == 0 and 8 * slab * hwt * 4 <= _OUT_BUDGET:
-            best = slab
-    return best if best is not None else 8
+    fits = [s for s in range(1, dim) if dim % s == 0 and s * plane <= bytes_limit // 8]
+    return max(fits) if fits else 1
 
 
 def voxelize_batch_sliced(
@@ -213,10 +180,10 @@ def voxelize_batch_sliced(
 ):
     """Assemble a FULL (B, C, D, H, W) grid from depth slabs, bounded memory.
 
-    Depths beyond the kernel's VMEM output budget (256^3+) run as a loop of
+    Grids too large for the device (pick_slab_depth) run as a loop of
     ``d_count=slab_depth`` slabs — the same unit depth-sharding distributes
     across a mesh (parallel/sharded.py), here executed sequentially on one
-    chip with a 2-slab in-flight window: slab k+1 dispatches (async) while
+    device with a 2-slab in-flight window: slab k+1 dispatches (async) while
     slab k's bytes land in the host buffer, so device memory stays
     O(B * C * slab * H * W) and host memory holds only the result.  Every
     slab reuses the SAME per-molecule PRNG keys, so the random rigid
@@ -244,87 +211,3 @@ def voxelize_batch_sliced(
         pending = (d0, cur)
     out[:, :, pending[0] : pending[0] + slab_depth] = np.asarray(pending[1])
     return out
-
-
-def kw_nomask(kw):
-    return {k: v for k, v in kw.items() if k != "mask"}
-
-
-def _choose_pack(vp: int, c: int) -> int:
-    """Molecules packed per launch row for the PALLAS path (1 = no packing);
-    the separable path has its own policy (_choose_pack_separable).
-
-    Two independent paddings waste work on small inputs: atom lanes pad to
-    128 (a V<=64 molecule fills half a chunk or less) and output channels pad
-    to 8 sublanes (forward_single writes 8 grid channels for 1 useful one —
-    pure loss on the write-bound exact path).  The smallest pack P with
-    ``P*vp % 128 == 0`` and ``P*c % 8 == 0`` fills both exactly; when no
-    P <= 32/c does (e.g. large or odd C), fall back to lane-filling alone.
-    Packing leaves total compute invariant (same atom chunks, same tiles) —
-    it only removes padding from the lanes, the matmul M-dim, and the output
-    DMA, so smaller P is never worse than larger.
-    """
-    if vp not in (32, 64):
-        # measured on-chip (vp=128, c=4): packing full-lane molecules helps
-        # neither path — pallas 44.8 -> 46.1 us/mol, separable 8.4 -> 12.1 —
-        # the extra Vp doubles the per-axis prep without reducing the write
-        # below its compute bound.  Channel alignment only pays inside the
-        # small-molecule buckets, where lane-filling is already required.
-        return 1
-    base = 128 // vp
-    for p in range(base, 33, base):
-        if p * c > 32:
-            break
-        if (p * c) % 8 == 0:
-            return p
-    return base if base * c <= 32 else 1
-
-
-def _choose_pack_separable(vp: int, c: int) -> int:
-    """Pack for the separable (no-cutoff) path.
-
-    The separable einsum has no 8-sublane output padding to fill, so only
-    lane-filling matters; measured honestly (materialized grids, 64^3 grid),
-    C=1 prefers one extra doubling (2.0 us/mol at P=4 vs 2.7 at P=2 vs 6.1
-    at P=8 — larger P degrades the einsum tiling)."""
-    if vp not in (32, 64):
-        return 1
-    base = 128 // vp
-    p = max(base, 4) if c == 1 else base
-    return p if p * c <= 32 else 1
-
-
-def _packed_batch(fn, coords, weights, radii, mask, pack):
-    """Pack `pack` small molecules into each 128-lane atom chunk.
-
-    A V<=64-atom molecule wastes most of a 128-lane chunk (and halves the
-    contraction K-dim of the separable matmul).  Packing P molecules with
-    block-diagonal channel weights (each molecule owns a disjoint C-slice of
-    a P*C-channel output) makes every lane and every matmul row useful; the
-    per-molecule grids fall out of a channel reshape.  Same trick as the
-    reference's MolSystemPointCloudMaker channel offsets
-    (/root/reference/molvoxel/etc/rdkit/pointcloud.py:207-312), applied to
-    batching.  ``fn(coords, weights, radii, mask=...)`` is the unpacked op.
-    """
-    b, vp, c = weights.shape
-    pad_b = (-b) % pack
-    if pad_b:
-        coords = jnp.pad(coords, ((0, pad_b), (0, 0), (0, 0)))
-        weights = jnp.pad(weights, ((0, pad_b), (0, 0), (0, 0)))
-        radii = jnp.pad(radii, ((0, pad_b), (0, 0)), constant_values=1.0) if radii.ndim == 2 else radii
-        mask = jnp.pad(mask, ((0, pad_b), (0, 0))) if mask is not None else None
-    bp = coords.shape[0] // pack
-
-    pc = coords.reshape(bp, pack * vp, 3)
-    pw = jnp.zeros((bp, pack * vp, pack * c), weights.dtype)
-    wg = weights.reshape(bp, pack, vp, c)
-    for i in range(pack):
-        pw = pw.at[:, i * vp : (i + 1) * vp, i * c : (i + 1) * c].set(wg[:, i])
-    pr = radii.reshape(bp, pack * vp) if radii.ndim == 2 else jnp.tile(radii, (pack,))
-    pm = mask.reshape(bp, pack * vp) if mask is not None else None
-
-    out = fn(pc, pw, pr, mask=pm)  # (bp, pack*c, Dl, H, W)
-    dl = out.shape[2]
-    dim = out.shape[3]
-    out = out.reshape(bp * pack, c, dl, dim, dim)
-    return out[:b]

@@ -1,7 +1,7 @@
 """Pure-XLA (jnp) voxelization ops.
 
-This is the portable compute path: it runs on CPU, GPU and TPU, serves as the
-numerical parity reference for the Pallas TPU kernels, and is itself fully
+This is the portable compute path: it runs on every backend, serves as the
+numerical parity reference for the Pallas deposit kernel, and is itself fully
 jit/vmap/shard_map compatible.  One functional op replaces the reference's
 3 backends x 3 forward paths x 6 density/radii kernels (~28 implementations,
 SURVEY.md section 7.1):
@@ -10,19 +10,18 @@ SURVEY.md section 7.1):
 
 - ``forward_single``   == weights of ones, shape (V, 1)
 - ``forward_types``    == one-hot weights (the reference's scatter_add
-  (/root/reference/molvoxel/voxelizer/torch/voxelizer.py:378) becomes a
-  matmul, which is MXU-native)
+  (torch/voxelizer.py:378) becomes a matmul)
 - ``forward_features`` == dense weights
 
 Distances are computed *separably*: per-axis squared deltas dx2 (V, D),
 dy2 (V, H), dz2 (V, W) are formed once (difference-first, so no catastrophic
 cancellation in f32, unlike a |x|^2+|g|^2-2x.g expansion), then combined per
 D-slab as a broadcast sum.  This replaces the reference's f64 ``cdist`` over
-a materialized meshgrid (/root/reference/molvoxel/voxelizer/numpy/voxelizer.py:544)
+a materialized meshgrid (numpy/voxelizer.py:544)
 with O(V*(D+H+W)) setup and zero stored grid coordinates.
 
 The channel accumulation is a (C, V) @ (V, slab) matmul, the same contraction
-the reference does via BLAS (numpy/voxelizer.py:228) — here it lands on the MXU.
+the reference does via BLAS (numpy/voxelizer.py:228), at Precision.HIGHEST (true f32).
 """
 
 from __future__ import annotations

@@ -1,70 +1,48 @@
-"""Fused Pallas TPU deposit kernels.
+"""Fused cutoff deposit: a Pallas kernel for the GPU, compiled through Triton.
 
-The hot loop of the reference is cdist -> density -> matmul over a
-materialized voxel meshgrid, staged through HBM-sized temporaries
-(/root/reference/molvoxel/voxelizer/numpy/voxelizer.py:531-560 and the numba
-triple loops, numba/func_features.py).  Here the whole pipeline is one fused
-kernel built around five TPU-specific ideas (evolved through on-chip
-measurement; see CLAUDE.md for the measurement discipline this hardware
-requires):
+    out[b, c, d, h, w] = sum_v weights[b, v, c] * f(|coords_bv - g_dhw|, r_bv, sigma)
 
-1. **Transposed tiles.**  Per-atom data lives voxels-on-sublanes x
-   atoms-on-lanes, so every per-atom scalar (cutoff threshold, gaussian plane
-   factor) is a (1, A) row that broadcasts natively — no relayouts in the
-   inner loop.
-2. **Separable factorization.**  exp(coef*(dx^2+dy^2+dz^2)) splits into a
-   per-plane factor ex[v,d] folded into the weight matrix (O(Ct*A) per plane)
-   and a cross-plane factor eyz[v,hw]; the radius cutoff d^2 <= r^2 becomes
-   dyz^2 <= thresh[v,d] with thresh = r^2 - dx^2 precomputed.  Per-element
-   work: one compare + one select, then an MXU matmul.
-3. **Nothing O(V*HW) ever exists.**  For whole-h-row tiles, dyz2 and eyz are
-   rebuilt *inside* the kernel from dy2 (V,H) and dz2 (V,W) vectors — the
-   distance/density matrices are never materialized in HBM nor streamed.
-4. **Active plane ranges.**  The set of depth planes an atom chunk reaches is
-   a contiguous interval (thresh is a downward parabola in d); each (tile,
-   chunk) program zero-fills once and loops only its precomputed
-   [d_lo, d_hi), skipping tile construction entirely when empty.
-5. **Spatial atom sorting.**  Atoms are pre-sorted by (x-slab, y, z) cell so
-   128-lane chunks are spatially local and the ranges are tight (deposition
-   is permutation-invariant).  This is the TPU analog of the reference's
-   host-side block binning (numpy/voxelizer.py:496-527) without its
-   half-voxel boundary bug.
+where f is zero beyond the atom's cutoff radius.  The plain XLA version
+(ops/dense.py) evaluates every (atom, voxel) pair; with r = 1 A at 0.5 A
+spacing only about 33 voxels lie inside an atom's cutoff, so at 64^3 about
+one evaluation in 7,800 does useful work.  This kernel evaluates only the
+pairs whose atom chunk can reach the voxel brick.
 
-The depth loop lives in-kernel (grid = batch x channel-tile x hw-tile x
-atom-chunk): per-grid-step pipeline overhead (~0.2us) otherwise dominates
-this workload.  One program instance owns one output tile: race-free by
-construction, no scatter/atomics (the torch backend's scatter_add_,
-torch/voxelizer.py:378, becomes the same matmul via one-hot weights).  The
-batch axis is a native leading grid dimension (vmap-of-pallas_call
-miscompiles in this toolchain).
+Design:
 
-Padding: V pads to a multiple of 128 (core.config.atom_bucket) with weights
-zeroed; C pads to a multiple of 8 with zero weight rows; grids whose H*W is
-not a multiple of 128 fall back to a streamed-tile variant with the same
-semantics.  Exactness: the cutoff compare is bit-for-bit the numpy-reference
-semantics; exp(a)*exp(b) vs exp(a+b) differs ~1e-7 relative, far inside the
-1e-5 parity budget (tests/test_parity_golden.py).
+- The program grid is (output brick, batch).  Each program owns one small
+  3-D brick of voxels with all its channels and stores it once, in the output
+  dtype.  Programs run in parallel and nothing carries between them: no
+  atomics, no cross-program reduction.
+- Atoms are sorted along a Morton curve (``morton_keys``) so that each chunk
+  of ``chunk`` consecutive atoms is spatially compact.  XLA computes each
+  chunk's bounding box (grown by the atoms' cutoff radii) and, for every
+  brick, the list of chunks whose box meets the brick.  A program loads its
+  own list and loops over those chunks only.
+- Per chunk the kernel forms the (chunk, brick) squared distances, the cutoff
+  select and the density in registers, and accumulates the channel sums in
+  float32.  Every lane computes in float32 (no TF32, no tensor cores: the
+  channel contraction is an elementwise multiply and a reduction over the
+  chunk); bf16 and fp8 grids differ only in the final store.
+
+``interpret`` mode is taken exactly when JAX's backend is the CPU, which is
+how the tests reach the kernel.  On a GPU the kernel is always compiled.
 """
 
 from __future__ import annotations
 
 import functools
-
+import math
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..core.config import GridSpec, round_up
-from .dense import _axis_positions
-
-BIG = 1e30  # padded-voxel squared distance: density underflows to exactly 0
-_VMEM_BUDGET = 13 * 2**20
-_OUT_BUDGET = 5 * 2**20
 
 # gaussian_notrunc pruning (see notrunc_r2_thresh): density contributions
 # below this are dropped.  1e-9 keeps the worst-case additive error (V * eps)
-# under 4e-6 even for 3.3k-atom proteins — inside the 1e-5 golden budget and
+# under 4e-6 even for 3.3k-atom proteins, inside the 1e-5 golden budget and
 # far below the bf16 grid quantization floor.  eps=0.0 selects the exact f32
 # underflow bound (exp rounds to +0.0 beyond it), i.e. bit-level notrunc.
 NOTRUNC_EPS = 1e-9
@@ -72,115 +50,42 @@ _F32_ZERO_LOG = 103.972  # -ln(2^-150): exp(-x) rounds to f32 +0.0 for x above t
 
 
 def notrunc_r2_thresh(r2, sigma: float, eps: float = NOTRUNC_EPS):
-    """Squared cutoff radius beyond which a no-cutoff gaussian is negligible.
+    """Squared radius beyond which a no-cutoff gaussian is negligible.
 
     exp(-0.5 * d2 / (sigma^2 r^2)) <= eps  <=>  d2 >= 2 sigma^2 ln(1/eps) r2.
-    With the default eps the pruned kernel reproduces the reference torch
-    backend's no-cutoff semantics (its masked_fill_ cutoff is dead code,
-    /root/reference/molvoxel/voxelizer/torch/voxelizer.py:564-567) to well
-    inside the golden tolerance; eps=0.0 is bit-exact in f32 (the density
-    underflows to +0.0 outside the returned radius)."""
-    import math
-
+    With the default eps the pruned kernel reproduces the no-cutoff gaussian
+    well inside the golden tolerance; eps=0.0 is bit-exact in f32 (the
+    density underflows to +0.0 outside the returned radius)."""
     log_inv = _F32_ZERO_LOG if eps <= 0.0 else min(math.log(1.0 / eps), _F32_ZERO_LOG)
     return r2 * (2.0 * sigma * sigma * log_inv)
 
 
+# Launch shape: voxel brick (depth, height, width), atoms per chunk, warps.
+# Powers of two (Triton block shapes).  Ten settings from 8x8x8/16/4 to
+# 4x4x32/16/4 measured alike on an H100 (PERF.md), so the simplest stays.
+BRICK = (8, 8, 8)
+CHUNK = 16
+NUM_WARPS = 4
+
+
 def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-# --------------------------------------------------------------------- tiling
-
-
-def _hw_tile(hwp: int, target: int = 1024) -> int:
-    """Largest multiple-of-128 divisor of hwp that is <= target."""
-    best = 128
-    t = 128
-    while t <= hwp:
-        if hwp % t == 0 and t <= target:
-            best = t
-        t += 128
-    return best
-
-
-def _channel_tile(cp: int, dl: int, hwt: int) -> int:
-    best = 8
-    ct = 8
-    while ct <= cp:
-        if cp % ct == 0 and ct * dl * hwt * 4 <= _OUT_BUDGET:
-            best = ct
-        ct += 8
-    return best
-
-
-def _atom_chunk(vp: int, hwt: int, out_bytes: int, streams: int) -> int:
-    """Largest atom chunk (multiple of 128, divides Vp) fitting VMEM."""
-    budget = _VMEM_BUDGET - out_bytes
-    a_max = max(128, budget // (streams * 2 * hwt * 4 + hwt * 4))  # double-buffered streams + dens temp
-    best = 128
-    a = 128
-    while a <= vp:
-        if vp % a == 0 and a <= a_max:
-            best = a
-        a += 128
-    return best
-
-
-def pallas_bwd_supported(spec: GridSpec, num_channels: int, d_count: int | None = None) -> bool:
-    """True when the Pallas backward kernel's tiling fits (see _kernel_v5_bwd).
-
-    Needs whole-row hw tiles and the full (Cp, Dl, hwt) cotangent tile in
-    VMEM; otherwise ops/autodiff falls back to the dense-path VJP."""
-    dim = spec.dimension
-    hwt = _row_tile(dim * dim, dim)
-    if hwt is None:
+    """Run the kernel in the Pallas interpreter only on the CPU backend."""
+    platform = jax.default_backend()
+    if platform == "cpu":
+        return True
+    if platform == "gpu":
         return False
-    cp = round_up(max(num_channels, 1), 8)
-    dl = dim if d_count is None else d_count
-    while hwt > 128 and 2 * cp * dl * hwt * 4 > _OUT_BUDGET:
-        if (hwt // 2) % dim == 0 and ((hwt // 2) // dim) % 8 == 0:
-            hwt //= 2
-        else:
-            break
-    # the ct block double-buffers (2x) and must leave room for the (hwt, a)
-    # working arrays — mirror voxelize_pallas_bwd_batch's budget exactly
-    return cp * dl * hwt * 4 <= _OUT_BUDGET
-
-
-def pallas_supported(spec: GridSpec, num_channels: int) -> bool:
-    """True when some (8, Dl, hwt) output tile fits the VMEM budget.
-
-    The v4 kernel (whole-row tiles) covers all standard dimensions; odd
-    dimensions fall back to streamed tiles with the same ceiling.  Beyond it
-    (very large depth), use depth-sharding (parallel.voxelize_depth_sharded)
-    or impl="dense"."""
-    return 8 * spec.dimension * 128 * 4 <= _OUT_BUDGET
-
-
-def _tiles(vp: int, cp: int, dl: int, hwp: int, streams: int):
-    hwt = _hw_tile(hwp)
-    ct = _channel_tile(cp, dl, hwt)
-    while ct == 8 and 8 * dl * hwt * 4 > _OUT_BUDGET and hwt > 128:
-        hwt //= 2
-        ct = _channel_tile(cp, dl, hwt)
-    if 8 * dl * hwt * 4 > _OUT_BUDGET:
-        raise ValueError(f"depth {dl} too large for the VMEM output budget")
-    a = _atom_chunk(vp, hwt, ct * dl * hwt * 4, streams)
-    return ct, a, hwt
+    raise RuntimeError(f"the Pallas deposit kernel has no lowering for platform {platform!r}")
 
 
 def morton_keys(coords, spec, mask=None, bits: int = 5):
     """(B, Vp) int32 Morton (Z-order) cell keys for spatial atom sorting.
 
-    Morton order makes 128-lane chunks compact in *all three* axes (the
-    earlier lexicographic (x, y, z) key gave slab-shaped chunks — thin in x
-    but spanning the full box in y — whose depth ranges blew up whenever a
-    random rotation mapped the extended direction onto the depth axis).
-    Compactness is preserved by rigid transforms, which is what lets the
-    sort run *before* the random rotation/translation: once per molecule,
-    on the host or hoisted out of augmentation loops, instead of once per
-    augmented sample.  Padded atoms key to +inf-ish so they sort last.
+    Morton order makes atom chunks compact in all three axes.  Compactness is
+    preserved by rigid transforms, which is what lets the sort run before the
+    random rotation/translation: once per molecule, on the host or hoisted
+    out of augmentation loops, instead of once per augmented sample.  Padded
+    atoms key to +inf-ish so they sort last.
     """
     cells = (1 << bits) - 1
     lb = jnp.asarray(spec.lower_bound, jnp.float32)
@@ -199,22 +104,20 @@ def morton_keys(coords, spec, mask=None, bits: int = 5):
     return key
 
 
-def _sort_atoms_spatially(coords, weights, radii, mask, spec, d_offset):
-    """Reorder atoms along a Morton curve so 128-lane chunks are spatially
-    local.
+def _sort_atoms_spatially(coords, weights, radii, mask, spec):
+    """Reorder atoms along a Morton curve so atom chunks are spatially local.
 
-    Deposition is permutation-invariant, but the plane ranges test whole
-    atom chunks: with arbitrary atom order a chunk of a protein spans the
-    entire box and every (chunk, tile, plane) is active.  The Morton cell
-    sort makes chunks ~cubical-local, so ranges prune the vast majority of
-    the V x N work (the useful pairs are ~0.1% for protein-scale inputs).
-    This is the TPU analog of the reference's host-side block binning
-    (/root/reference/molvoxel/voxelizer/numpy/voxelizer.py:496-527) without
-    its half-voxel boundary bug.
-    """
+    Deposition is permutation-invariant, but culling tests whole chunks: in
+    arbitrary order a chunk of a protein spans the entire box and meets
+    every brick.  The Morton sort makes chunks about cubical, so each brick
+    visits only the few chunks around it."""
     key = morton_keys(coords, spec, mask)
     order = jnp.argsort(key, axis=1)  # (B, Vp)
-    take = lambda arr: jnp.take_along_axis(arr, order[..., None], axis=1) if arr.ndim == 3 else jnp.take_along_axis(arr, order, axis=1)
+
+    def take(arr):
+        idx = order[..., None] if arr.ndim == 3 else order
+        return jnp.take_along_axis(arr, idx, axis=1)
+
     coords = take(coords)
     weights = take(weights)
     if radii.ndim == 2:
@@ -224,398 +127,88 @@ def _sort_atoms_spatially(coords, weights, radii, mask, spec, d_offset):
     return coords, weights, radii, mask
 
 
-# ------------------------------------------------------------------- prepare
+def _kernel(off_ref, cnt_ref, list_ref, atom_ref, w_ref, o_ref, *, gaussian: bool, c: int,
+            chunk: int, brick, nb, dl: int, dim: int, res: float, half_width: float, out_dtype):
+    """One program: one voxel brick of one molecule, every channel."""
+    t = pl.program_id(0)
+    bi = pl.program_id(1)
+    bd, bh, bw = brick
+    _, nbh, nbw = nb
+    td = t // (nbh * nbw)
+    th = (t // nbw) % nbh
+    tw = t % nbw
+    n = bd * bh * bw
+    i = jax.lax.iota(jnp.int32, n)
+    vd = td * bd + i // (bh * bw)
+    vh = th * bh + (i // bw) % bh
+    vw = tw * bw + i % bw
+    # voxel centres exactly as ops/dense._axis_positions forms them
+    px = (vd + off_ref[0]).astype(jnp.float32) * res - half_width
+    py = vh.astype(jnp.float32) * res - half_width
+    pz = vw.astype(jnp.float32) * res - half_width
 
-
-def _prepare_axes(coords, weights, mask, spec, d_offset, d_count):
-    """Per-axis precompute: dx2 (B, Dl, Vp), dy2_t (B, H, Vp), dz2_t (B, W, Vp),
-    wt (B, Cp, Vp) — O(V*(D+H+W)) arrays only."""
-    b, vp, c = weights.shape
-    dim = spec.dimension
-    dl = dim if d_count is None else d_count
-    hw = dim * dim
-    hwp = round_up(hw, 128)
-    cp = round_up(max(c, 1), 8)
-    dtype = jnp.float32
-
-    ax = _axis_positions(spec, dtype)
-    axd = _axis_positions(spec, dtype, d_offset, d_count) if d_count is not None else ax
-
-    dx = axd[None, :, None] - coords[:, None, :, 0]
-    dy = ax[None, :, None] - coords[:, None, :, 1]
-    dz = ax[None, :, None] - coords[:, None, :, 2]
-
-    wt = jnp.swapaxes(weights, 1, 2).astype(dtype)  # (B, C, Vp)
-    if mask is not None:
-        wt = jnp.where(mask[:, None, :], wt, 0.0)
-    if cp != c:
-        wt = jnp.pad(wt, ((0, 0), (0, cp - c), (0, 0)))
-    return dx * dx, dy * dy, dz * dz, wt, (b, vp, c, cp, dim, dl, hw, hwp)
-
-
-def _prepare_common(coords, weights, mask, spec, d_offset, d_count):
-    """XLA-side precompute shared by all kernel variants (batched shapes).
-
-    coords: (B, Vp, 3); weights: (B, Vp, C); mask: (B, Vp) or None.
-    Returns dx2 (B, Dl, Vp), dyz2_t (B, HWp, Vp), wt (B, Cp, Vp), dims.
-    """
-    b, vp, c = weights.shape
-    dim = spec.dimension
-    dl = dim if d_count is None else d_count
-    hw = dim * dim
-    hwp = round_up(hw, 128)
-    cp = round_up(max(c, 1), 8)
-    dtype = jnp.float32
-
-    ax = _axis_positions(spec, dtype)  # (dim,)
-    axd = _axis_positions(spec, dtype, d_offset, d_count) if d_count is not None else ax  # (Dl,)
-
-    # (B, Dl, Vp): depth-axis squared deltas, atoms on lanes
-    dx = axd[None, :, None] - coords[:, None, :, 0]
-    dx2 = dx * dx
-    # (B, H, Vp) and (B, W, Vp) -> (B, HWp, Vp) cross-plane squared distance
-    dy = ax[None, :, None] - coords[:, None, :, 1]
-    dz = ax[None, :, None] - coords[:, None, :, 2]
-    dyz2 = (dy * dy)[:, :, None, :] + (dz * dz)[:, None, :, :]  # (B, H, W, Vp)
-    dyz2_t = dyz2.reshape(b, hw, vp)
-    if hwp != hw:
-        dyz2_t = jnp.pad(dyz2_t, ((0, 0), (0, hwp - hw), (0, 0)), constant_values=BIG)
-
-    wt = jnp.swapaxes(weights, 1, 2).astype(dtype)  # (B, C, Vp)
-    if mask is not None:
-        wt = jnp.where(mask[:, None, :], wt, 0.0)
-    if cp != c:
-        wt = jnp.pad(wt, ((0, 0), (0, cp - c), (0, 0)))
-    return dx2, dyz2_t, wt, (b, vp, c, cp, dim, dl, hw, hwp)
-
-
-# ------------------------------------------------------------------- kernels
-
-
-def _kernel_gaussian(flag_ref, thresh_ref, ex_ref, dyz2_ref, eyz_ref, wt_ref, o_ref, *,
-                     dl: int, a: int, ct: int, hwt: int):
-    """Streamed-chunk kernel with the depth loop in-kernel.
-
-    Grid = (batch, channel-tile, hw-tile, atom-chunk); all Dl depth planes of
-    one (chunk, tile) pair run inside a fori_loop against resident blocks, so
-    per-grid-step pipeline overhead is amortized over the whole depth axis
-    (measured: this overhead, ~0.2us/step, dominated the V x N compute at
-    ligand and protein scale alike).  Skip flags gate each plane: an inactive
-    plane costs one SMEM read and, on the first chunk, a zero-fill."""
-    vc = pl.program_id(3)
-    dyz2 = dyz2_ref[0]  # (HWt, A)
-    eyz = eyz_ref[0]
-    wt = wt_ref[0]  # (Ct, A)
-    first = vc == 0
-
-    def body(d, carry):
-        active = flag_ref[0, 0, d] > 0
-
-        @pl.when(active)
-        def _():
-            off = pl.multiple_of(d * a, 128)
-            th = thresh_ref[0, 0:1, pl.ds(off, a)]  # (1, A)
-            exr = ex_ref[0, 0:1, pl.ds(off, a)]
-            dens = jnp.where(dyz2 <= th, eyz, 0.0)
-            # measured on-chip: a manual bf16x4 split is only ~6% faster than
-            # HIGHEST here (MXU overlaps the VPU mask pass) and costs accuracy
-            acc = jax.lax.dot_general(
-                wt * exr, dens, dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST,
-            )
-
-            @pl.when(first)
-            def _():
-                o_ref[0, :, pl.ds(d, 1), :] = acc[:, None, :]
-
-            @pl.when(jnp.logical_not(first))
-            def _():
-                o_ref[0, :, pl.ds(d, 1), :] += acc[:, None, :]
-
-        @pl.when(jnp.logical_and(first, jnp.logical_not(active)))
-        def _():
-            o_ref[0, :, pl.ds(d, 1), :] = jnp.zeros((ct, 1, hwt), jnp.float32)
-
-        return carry
-
-    jax.lax.fori_loop(0, dl, body, 0)
-
-
-def _kernel_binary(flag_ref, thresh_ref, dyz2_ref, wt_ref, o_ref, *, dl: int, a: int, ct: int, hwt: int):
-    vc = pl.program_id(3)
-    dyz2 = dyz2_ref[0]
-    wt = wt_ref[0]
-    first = vc == 0
-
-    def body(d, carry):
-        active = flag_ref[0, 0, d] > 0
-
-        @pl.when(active)
-        def _():
-            off = pl.multiple_of(d * a, 128)
-            th = thresh_ref[0, 0:1, pl.ds(off, a)]
-            dens = jnp.where(dyz2 <= th, 1.0, 0.0)
-            acc = jax.lax.dot_general(
-                wt, dens, dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST,
-            )
-
-            @pl.when(first)
-            def _():
-                o_ref[0, :, pl.ds(d, 1), :] = acc[:, None, :]
-
-            @pl.when(jnp.logical_not(first))
-            def _():
-                o_ref[0, :, pl.ds(d, 1), :] += acc[:, None, :]
-
-        @pl.when(jnp.logical_and(first, jnp.logical_not(active)))
-        def _():
-            o_ref[0, :, pl.ds(d, 1), :] = jnp.zeros((ct, 1, hwt), jnp.float32)
-
-        return carry
-
-    jax.lax.fori_loop(0, dl, body, 0)
-
-
-def _row_tile(hw: int, w: int, target: int = 1024) -> int | None:
-    """Whole-row hw tile: multiple of both W and 128, divides hw, <= ~target.
-
-    Enables in-kernel dyz2 reconstruction (kernel v4): a tile spanning whole
-    h-rows factorizes as dy2-rows + dz2, so the O(V*HW) distance matrix never
-    exists — not in HBM, not even as a kernel input stream.
-    """
-    if hw % 128 != 0:
-        return None
-    import math as _math
-
-    step = w * 128 // _math.gcd(w, 128)
-    best = None
-    t = step
-    while t <= hw:
-        # Mosaic block legality: the dy2 block's sublane dim is t // w rows,
-        # which must be a multiple of 8 or the whole H axis (= w rows).
-        rows = t // w
-        if hw % t == 0 and (rows % 8 == 0 or rows == w):
-            if t <= target or best is None:
-                best = t
-            if t > target:
-                break
-        t += step
-    return best
-
-
-def _kernel_v5(range_ref, atom_ref, wt_ref, o_ref, acc_ref=None, *,
-               gaussian: bool, dl: int, a: int, ct: int, hwt: int, hrows: int, dim: int,
-               res: float, half_width: float, nvc: int, out_dtype=None, lowp: bool = False):
-    """v5: the kernel's only array inputs are per-atom rows.
-
-    Everything the v4 kernel streamed from HBM — dy2/dz2 axis factors, the
-    (Dl*A) thresh/ex chunk rows — is rebuilt in-kernel from five (1, A)
-    per-atom rows [x', y, z, r^2, coef] and iota-derived voxel positions
-    (bit-identical arithmetic to the XLA axis construction: idx*res - w/2 in
-    f32).  Per (tile, chunk) step that cuts input DMA from O((Dl + H + W)*A)
-    to O(A) and deletes the XLA-side prep arrays entirely — measured, the
-    per-call prep (argsort relayouts + reach tensor) dominated the
-    protein-path floor (benchmarks/experiments/protein_probe3.py).
-
-    Depth handling: x' is pre-shifted by d_offset*res, so plane d's position
-    is always d*res - width/2; the cutoff becomes dyz2 <= r^2 - dx^2 with
-    dx = (d*res - w/2) - x', computed per active plane as (1, A) vectors
-    (the exp over (1, A) replaces a 24 KB DMA).  The active range [d_lo,
-    d_hi) comes precomputed in SMEM (closed form, _plane_ranges_closed).
-
-    Output: with ``acc_ref`` (cast mode) accumulation runs in an f32 VMEM
-    scratch and ONE aligned full-tile cast-store lands at the last atom
-    chunk — never a dynamic sublane store on a narrow ref (the documented
-    Mosaic crash).  ``lowp`` runs the per-plane matmul on bf16 inputs
-    (single MXU pass; quantization floor already 2^-8 with a bf16 output).
-    Without ``acc_ref`` the f32 out block is accumulated directly (RMW
-    stores are legal on f32) for bit-parity grids."""
-    vc = pl.program_id(3)
-    ht = pl.program_id(2)
-    cast = acc_ref is not None
-
-    @pl.when(vc == 0)
-    def _():
-        if cast:
-            acc_ref[...] = jnp.zeros((ct, dl, hwt), jnp.float32)
-        else:
-            o_ref[0] = jnp.zeros((ct, dl, hwt), jnp.float32)
-
-    d_lo = range_ref[0, 0, 0]
-    d_hi = range_ref[0, 0, 1]
-
-    @pl.when(d_hi > d_lo)
-    def _():
-        x = atom_ref[0, 0:1, :]  # (1, A), pre-shifted by d_offset*res
-        y = atom_ref[0, 1:2, :]
-        z = atom_ref[0, 2:3, :]
-        r2 = atom_ref[0, 3:4, :]
-        # tpu.iota is integer-only; index arithmetic in int32, then one cast
-        ay = (jax.lax.broadcasted_iota(jnp.int32, (hrows, 1), 0) + ht * hrows).astype(jnp.float32) * res - half_width
-        az = jax.lax.broadcasted_iota(jnp.int32, (dim, 1), 0).astype(jnp.float32) * res - half_width
-        dy2 = (ay - y) * (ay - y)  # (hrows, A)
-        dz2 = (az - z) * (az - z)  # (W, A)
-        dyz2 = (dy2[:, None, :] + dz2[None, :, :]).reshape(hwt, a)
-        wt = wt_ref[0]
+    def body(j, acc):
+        start = pl.multiple_of(list_ref[bi, t, j] * chunk, chunk)
+        atoms = pl.ds(start, chunk)
+        dx = px[None, :] - atom_ref[bi, 0, atoms][:, None]
+        dy = py[None, :] - atom_ref[bi, 1, atoms][:, None]
+        dz = pz[None, :] - atom_ref[bi, 2, atoms][:, None]
+        d2 = dx * dx + dy * dy + dz * dz  # (chunk, n)
+        inside = d2 <= atom_ref[bi, 3, atoms][:, None]
         if gaussian:
-            # exp(coef*dyz2) as exp(coef*dy2) (X) exp(coef*dz2): transcendentals
-            # over (hrows + W, A) vectors, not the (HWt, A) tile (~12x fewer;
-            # exp(a)*exp(b) vs exp(a+b) differs ~1e-7 relative, inside the
-            # golden budget; the cutoff compare below is exact either way).
-            coef = atom_ref[0, 4:5, :]
-            ey = jnp.exp(dy2 * coef)
-            ez = jnp.exp(dz2 * coef)
-            if lowp:
-                ey = ey.astype(jnp.bfloat16)
-                ez = ez.astype(jnp.bfloat16)
-            eyz = (ey[:, None, :] * ez[None, :, :]).reshape(hwt, a)
-        elif lowp:
-            wt = wt.astype(jnp.bfloat16)
+            dens = jnp.where(inside, jnp.exp(d2 * atom_ref[bi, 4, atoms][:, None]), 0.0)
+        else:
+            dens = jnp.where(inside, 1.0, 0.0)
+        return tuple(
+            acc[ci] + jnp.sum(dens * w_ref[bi, ci, atoms][:, None], axis=0) for ci in range(c)
+        )
 
-        def body(d, carry):
-            dxv = (d.astype(jnp.float32) * res - half_width) - x  # (1, A)
-            dx2v = dxv * dxv
-            th = r2 - dx2v
-            if gaussian:
-                m = wt * jnp.exp(dx2v * coef)
-                if lowp:
-                    dens = jnp.where(dyz2 <= th, eyz, jnp.bfloat16(0.0))
-                    m = m.astype(jnp.bfloat16)
-                else:
-                    dens = jnp.where(dyz2 <= th, eyz, 0.0)
-            else:
-                m = wt
-                # Select in f32, then cast: with two *scalar* bf16 branches the
-                # i1 mask would need an (8,128)->(16,128) splat relayout that
-                # Mosaic rejects ("Invalid relayout: Non-singleton logical
-                # dimension is replicated in destination but not in source");
-                # the gaussian branch never hits this because eyz is a real
-                # bf16 array.  Caught on-device by the binary bf16 gate check.
-                dens = jnp.where(dyz2 <= th, 1.0, 0.0)
-                if lowp:
-                    dens = dens.astype(jnp.bfloat16)
-            if lowp:
-                acc = jax.lax.dot_general(
-                    m, dens, dimension_numbers=(((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )
-            else:
-                acc = jax.lax.dot_general(
-                    m, dens, dimension_numbers=(((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST,
-                )
-            if cast:
-                acc_ref[:, pl.ds(d, 1), :] += acc[:, None, :]
-            else:
-                o_ref[0, :, pl.ds(d, 1), :] += acc[:, None, :]
-            return carry
+    zeros = tuple(jnp.zeros((n,), jnp.float32) for _ in range(c))
+    acc = jax.lax.fori_loop(0, cnt_ref[bi, t], body, zeros)
 
-        jax.lax.fori_loop(d_lo, d_hi, body, 0)
-
-    if cast:
-        @pl.when(vc == nvc - 1)
-        def _():
-            o_ref[0] = acc_ref[...].astype(out_dtype)
+    ragged = dl % bd or dim % bh or dim % bw
+    keep = ((vd < dl) & (vh < dim) & (vw < dim)).reshape(bd, bh, bw) if ragged else None
+    region = (pl.ds(td * bd, bd), pl.ds(th * bh, bh), pl.ds(tw * bw, bw))
+    for ci in range(c):
+        plgpu.store(o_ref.at[(bi, ci, *region)], acc[ci].reshape(bd, bh, bw).astype(out_dtype),
+                    mask=keep)
 
 
-def _plane_ranges_closed(coords_shifted, r2, spec, dl, nhwt, hrows, a):
-    """(B*nhwt*nvc, 1, 2) int32 [d_lo, d_hi) active plane ranges, closed form.
+def _chunk_lists(xyz, reach, spec, d_offset, dl, brick):
+    """Per brick, the chunks whose cutoff-grown bounding box meets it.
 
-    Replaces the O(B*nhwt*Dl*Vp) boolean reach tensor (_plane_ranges_axes)
-    with O(B*nhwt*Vp) elementwise work: the minimum squared yz-distance from
-    an atom to an hw tile is distance-to-interval (continuous, i.e. a
-    conservative lower bound on the discrete voxel-center minimum), and the
-    depth planes an atom reaches solve |x - d*res + w/2| <= sqrt(r^2 - min)
-    directly.  A couple of ulps of slack widen the interval so float rounding
-    can only ever *add* a plane — the kernel's per-element cutoff compare is
-    exact, so conservative ranges cost at most one masked matmul.
+    xyz: (B, NC, chunk, 3) atom positions; reach: (B, NC, chunk) cutoff
+    radius, -inf for atoms that deposit nothing.  Returns counts (B, T) and
+    chunk indices (B, T, NC), hits first."""
+    bd, bh, bw = brick
+    dim = spec.dimension
+    live = reach > -jnp.inf
+    grow = reach[..., None] * (1 + 1e-5) + 1e-5  # ulp slack: the box test must not cull a hit
+    lo = jnp.min(jnp.where(live[..., None], xyz - grow, jnp.inf), axis=2)  # (B, NC, 3)
+    hi = jnp.max(jnp.where(live[..., None], xyz + grow, -jnp.inf), axis=2)
 
-    ``coords_shifted``: (B, Vp, 3) with x pre-shifted by d_offset*res (the
-    same rows the kernel sees); ``r2``: (B, Vp) with padded/masked atoms
-    already forced to tiny reach (their coords sit ~1e3 off-box, so the
-    interval is empty regardless).
-    """
-    b, vp, _ = coords_shifted.shape
-    res = float(spec.resolution)
-    lb = float(spec.lower_bound)
-    ub = float(spec.upper_bound)
-    x = coords_shifted[..., 0]
-    y = coords_shifted[..., 1]
-    z = coords_shifted[..., 2]
-    h_lo = lb + (jnp.arange(nhwt, dtype=jnp.float32) * hrows) * res  # (nhwt,)
-    h_hi = h_lo + (hrows - 1) * res
-    dy = jnp.maximum(jnp.maximum(h_lo[None, :, None] - y[:, None, :], y[:, None, :] - h_hi[None, :, None]), 0.0)
-    dz = jnp.maximum(jnp.maximum(lb - z, z - ub), 0.0)  # (B, Vp)
-    min_dyz2 = dy * dy + (dz * dz)[:, None, :]  # (B, nhwt, Vp)
-    s2 = r2[:, None, :] - min_dyz2
-    s = jnp.sqrt(jnp.maximum(s2, 0.0)) * 1.000002 + 1e-6  # ulp slack: conservative only
-    lo = jnp.ceil((x[:, None, :] - s - lb) / res)
-    hi = jnp.floor((x[:, None, :] + s - lb) / res) + 1.0
-    lo = jnp.clip(lo, 0.0, float(dl))
-    hi = jnp.clip(hi, 0.0, float(dl))
-    empty = s2 < 0.0
-    lo = jnp.where(empty, float(dl), lo).astype(jnp.int32)
-    hi = jnp.where(empty, 0.0, hi).astype(jnp.int32)
-    nvc = vp // a
-    lo = lo.reshape(b, nhwt, nvc, a).min(axis=3)
-    hi = hi.reshape(b, nhwt, nvc, a).max(axis=3)
-    hi = jnp.maximum(hi, lo)  # normalize all-empty chunks to d_hi == d_lo
-    return jnp.stack([lo, hi], axis=-1).reshape(b * nhwt * nvc, 1, 2)
+    def axis_hits(axis, n_vox, b_len, offset=0):
+        # voxel-centre extent of each brick along one axis, then interval overlap
+        first = jnp.arange(0, n_vox, b_len)
+        last = jnp.minimum(first + b_len, n_vox) - 1
+        pos = lambda idx: (idx + offset).astype(jnp.float32) * spec.resolution - spec.width / 2.0
+        return (lo[:, None, :, axis] <= pos(last)[None, :, None]) & (
+            hi[:, None, :, axis] >= pos(first)[None, :, None]
+        )  # (B, n_bricks_axis, NC)
 
-
-def _plane_ranges_axes(dy2_t, dz2_t, thresh, hwt, a):
-    """(B*nhwt*nvc, 1, 2) int32 [d_lo, d_hi) active plane ranges per (tile, chunk).
-
-    Tile minimum of dyz2 factorizes exactly for whole-row tiles
-    (min_h dy2 + min_w dz2); an atom chunk's reach along d is the union of
-    per-atom intervals, covered conservatively by [first, last+1) of the
-    any-atom activity mask."""
-    b, h, vp = dy2_t.shape
-    dl = thresh.shape[1]
-    hw_rows = hwt // dz2_t.shape[1]
-    nhwt = h // hw_rows
-    nvc = vp // a
-    minh = dy2_t.reshape(b, nhwt, hw_rows, vp).min(axis=2)  # (B, nhwt, Vp)
-    minz = dz2_t.min(axis=1)  # (B, Vp)
-    min_tile = minh + minz[:, None, :]
-    reach = min_tile[:, :, None, :] <= thresh[:, None, :, :]  # (B, nhwt, Dl, Vp)
-    act = jnp.swapaxes(reach.reshape(b, nhwt, dl, nvc, a).any(axis=4), 2, 3)  # (B, nhwt, nvc, Dl)
-    any_act = act.any(axis=-1)
-    lo = jnp.argmax(act, axis=-1).astype(jnp.int32)
-    hi = (dl - jnp.argmax(act[..., ::-1], axis=-1)).astype(jnp.int32)
-    lo = jnp.where(any_act, lo, 0)
-    hi = jnp.where(any_act, hi, 0)
-    return jnp.stack([lo, hi], axis=-1).reshape(b * nhwt * nvc, 1, 2)
-
-
-# ------------------------------------------------------------------ wrappers
-
-
-def _chunk_rows(x, a):
-    """(B, Dl, Vp) -> (B*nvc, 1, Dl*A): per-atom-chunk all-planes rows.
-
-    Row b*nvc+vc holds [d*A + j] = x[b, d, vc*A + j] — contiguous per chunk so
-    the kernel's per-plane (1, A) slice is a 128-aligned lane window."""
-    b, dl, vp = x.shape
-    nvc = vp // a
-    return x.reshape(b, dl, nvc, a).transpose(0, 2, 1, 3).reshape(b * nvc, 1, dl * a)
-
-
-def _skip_flags3(dyz2_t, thresh, hwt, a):
-    """(B*nhwt*nvc, 1, Dl) int32 plane-activity flags (see _skip_flags doc)."""
-    b, hwp, vp = dyz2_t.shape
-    dl = thresh.shape[1]
-    nhwt = hwp // hwt
-    nvc = vp // a
-    min_tile = dyz2_t.reshape(b, nhwt, hwt, vp).min(axis=2)  # (B, nhwt, Vp)
-    reach = min_tile[:, :, None, :] <= thresh[:, None, :, :]  # (B, nhwt, Dl, Vp)
-    flags = reach.reshape(b, nhwt, dl, nvc, a).any(axis=4)  # (B, nhwt, Dl, nvc)
-    return jnp.swapaxes(flags, 2, 3).reshape(b * nhwt * nvc, 1, dl).astype(jnp.int32)
+    hd = axis_hits(0, dl, bd, d_offset)
+    hh = axis_hits(1, dim, bh)
+    hw = axis_hits(2, dim, bw)
+    hit = hd[:, :, None, None, :] & hh[:, None, :, None, :] & hw[:, None, None, :, :]
+    hit = hit.reshape(hit.shape[0], -1, hit.shape[-1])  # (B, T, NC), bricks depth-major
+    counts = jnp.sum(hit, axis=-1, dtype=jnp.int32)
+    order = jnp.argsort(~hit, axis=-1, stable=True).astype(jnp.int32)
+    return counts, order
 
 
 @functools.partial(
-    jax.jit, static_argnames=("spec", "density_type", "sigma", "d_count", "out_dtype", "presorted")
+    jax.jit,
+    static_argnames=("spec", "density_type", "sigma", "d_count", "out_dtype", "presorted"),
 )
 def voxelize_pallas_batch(
     coords: jnp.ndarray,  # (B, Vp, 3)
@@ -633,194 +226,69 @@ def voxelize_pallas_batch(
 ) -> jnp.ndarray:
     """Batched fused deposit -> (B, C, Dl, H, W).  Per-atom radii.
 
-    ``out_dtype``: "float32" (parity default) or "bfloat16".  bf16 grids halve
-    the output-write bytes — the measured wall of the exact ligand path (see
-    _kernel_v5) — and are the natural input dtype for CNN training consumers;
-    accumulation stays f32 in VMEM, only the final HBM tile is cast.
+    ``out_dtype``: "float32" (parity default), "bfloat16" or
+    "float8_e4m3fn"; accumulation is float32 in every lane, only the store
+    narrows.
 
-    ``presorted``: atoms already arrive in spatially-local order (Morton; the
-    data pipeline sorts once per molecule on the host, or voxelize_batch
-    sorts pre-transform).  Skips the in-graph argsort, which is a bitonic
-    network on TPU and was the single largest term of the protein-path cost
-    (~200 us/mol of 367, benchmarks/experiments/protein_probe3.py).
+    ``presorted``: atoms already arrive in Morton order (the data pipeline
+    sorts once per molecule on the host, or voxelize_batch sorts before the
+    random transform), so no in-graph sort is needed.
 
-    ``density_type="gaussian_notrunc"`` runs the same gaussian kernel with
-    the cutoff threshold decoupled from the gaussian coefficient: the
-    per-atom thresh row carries the underflow radius (notrunc_r2_thresh)
-    instead of r^2, so plane ranges and the per-element select prune exactly
-    the region where the no-cutoff density is negligible/zero.  This erases
-    the separable path's O(V * D^3) dense work at protein scale (VERDICT r3
-    weak #1) while keeping reference-torch semantics."""
+    ``density_type="gaussian_notrunc"`` runs the gaussian kernel with the
+    cutoff at the underflow radius (notrunc_r2_thresh) while the gaussian
+    coefficient keeps r: the no-cutoff density, pruned only where it is
+    negligible."""
     gaussian = density_type in ("gaussian", "gaussian_notrunc")
     notrunc = density_type == "gaussian_notrunc"
     b, vp, c = weights.shape
+    a = CHUNK
     radii = jnp.asarray(radii, jnp.float32)
     if radii.ndim == 1:
         radii = jnp.broadcast_to(radii[None, :], (b, vp))
-    # The kernel's atom-chunk block specs need Vp % 128 == 0 (TPU lane width).
-    # Unbatched API calls arrive at the small-molecule bucket (32/64, see
-    # core.config.small_atom_bucket); pad to one chunk with far-away zero-
-    # weight atoms — their plane ranges are empty, so they cost nothing.
-    vpad = round_up(vp, 128) - vp
+    if mask is None:
+        mask = jnp.ones((b, vp), bool)
+    if vp > a and not presorted:
+        coords, weights, radii, mask = _sort_atoms_spatially(coords, weights, radii, mask, spec)
+    vpad = round_up(vp, a) - vp
     if vpad:
-        coords = jnp.pad(coords, ((0, 0), (0, vpad), (0, 0)), constant_values=1e3)
+        coords = jnp.pad(coords, ((0, 0), (0, vpad), (0, 0)))
         weights = jnp.pad(weights, ((0, 0), (0, vpad), (0, 0)))
         radii = jnp.pad(radii, ((0, 0), (0, vpad)), constant_values=1.0)
-        if mask is not None:
-            mask = jnp.pad(mask, ((0, 0), (0, vpad)))
+        mask = jnp.pad(mask, ((0, 0), (0, vpad)))
         vp += vpad
-    if vp > 128 and not presorted:
-        coords, weights, radii, mask = _sort_atoms_spatially(coords, weights, radii, mask, spec, d_offset)
-    dim = spec.dimension
-    dl_eff = dim if d_count is None else d_count
-    hwt_rows = _row_tile(dim * dim, dim)
-    if hwt_rows is not None and 8 * dl_eff * hwt_rows * 4 > _OUT_BUDGET:
-        hwt_rows = None  # whole-row tile can't fit VMEM (e.g. unsliced 256^3): stream tiles instead
-    if hwt_rows is not None:
-        return _run_v5(coords, weights, radii, mask, spec, gaussian, sigma, d_offset, d_count, hwt_rows,
-                       out_dtype=out_dtype, notrunc=notrunc)
-    # fallback for grids whose H*W is not 128-aligned: streamed dyz2/eyz tiles
-    dx2, dyz2_t, wt, (b, vp, c, cp, dim, dl, hw, hwp) = _prepare_common(
-        coords, weights, mask, spec, d_offset, d_count
-    )
-    r2 = radii * radii  # (B, Vp)
-    if mask is not None:
-        r2 = jnp.where(mask, r2, 1.0)
+    coords = coords.astype(jnp.float32)
+
+    r2 = jnp.where(mask, radii * radii, 1.0)
     r2_th = notrunc_r2_thresh(r2, sigma) if notrunc else r2
+    coef = -(0.5 / (sigma * sigma)) / r2 if gaussian else jnp.zeros_like(r2)
+    atom_rows = jnp.stack(
+        [coords[..., 0], coords[..., 1], coords[..., 2], r2_th, coef], axis=1
+    )  # (B, 5, Vp)
+    wt = jnp.where(mask[:, None, :], jnp.swapaxes(weights, 1, 2).astype(jnp.float32), 0.0)
 
-    thresh = r2_th[:, None, :] - dx2  # (B, Dl, Vp): cutoff as dyz2 <= thresh
-    streams = 2 if gaussian else 1
-    ct, a, hwt = _tiles(vp, cp, dl, hwp, streams)
-    nvc = vp // a
-    nhwt = hwp // hwt
-    grid = (b, cp // ct, nhwt, nvc)
-
-    flags = _skip_flags3(dyz2_t, thresh, hwt, a)  # (B*nhwt*nvc, 1, Dl)
-    thresh_rows = _chunk_rows(thresh, a)  # (B*nvc, 1, Dl*A)
-    flag_spec = pl.BlockSpec(
-        (1, 1, dl), lambda bb, cb, ht, vc: ((bb * nhwt + ht) * nvc + vc, 0, 0), memory_space=pltpu.SMEM
-    )
-    row_spec = pl.BlockSpec((1, 1, dl * a), lambda bb, cb, ht, vc: (bb * nvc + vc, 0, 0), memory_space=pltpu.VMEM)
-    tile_spec = pl.BlockSpec((1, hwt, a), lambda bb, cb, ht, vc: (bb, ht, vc), memory_space=pltpu.VMEM)
-    wt_spec = pl.BlockSpec((1, ct, a), lambda bb, cb, ht, vc: (bb, cb, vc), memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((1, ct, dl, hwt), lambda bb, cb, ht, vc: (bb, cb, 0, ht), memory_space=pltpu.VMEM)
-    cost = pl.CostEstimate(
-        flops=2 * b * cp * vp * dl * hwp + 2 * b * vp * dl * hwp,
-        bytes_accessed=b * (cp // ct) * vp * hwp * 4 * streams + b * cp * dl * hwp * 4,
-        transcendentals=b * vp * hwp if gaussian else 0,
-    )
-
-    if gaussian:
-        coef = -(0.5 / (sigma * sigma)) / r2  # (B, Vp)
-        ex_rows = _chunk_rows(jnp.exp(dx2 * coef[:, None, :]), a)  # (B*nvc, 1, Dl*A)
-        out = pl.pallas_call(
-            functools.partial(_kernel_gaussian, dl=dl, a=a, ct=ct, hwt=hwt),
-            grid=grid,
-            in_specs=[flag_spec, row_spec, row_spec, tile_spec, tile_spec, wt_spec],
-            out_specs=out_spec,
-            out_shape=jax.ShapeDtypeStruct((b, cp, dl, hwp), jnp.float32),
-            cost_estimate=cost,
-            interpret=_interpret(),
-        )(flags, thresh_rows, ex_rows, dyz2_t, jnp.exp(dyz2_t * coef[:, None, :]), wt)
-    else:
-        out = pl.pallas_call(
-            functools.partial(_kernel_binary, dl=dl, a=a, ct=ct, hwt=hwt),
-            grid=grid,
-            in_specs=[flag_spec, row_spec, tile_spec, wt_spec],
-            out_specs=out_spec,
-            out_shape=jax.ShapeDtypeStruct((b, cp, dl, hwp), jnp.float32),
-            cost_estimate=cost,
-            interpret=_interpret(),
-        )(flags, thresh_rows, dyz2_t, wt)
-    out = out[:, :c, :, :hw].reshape(b, c, dl, dim, dim)
-    # streamed fallback keeps f32 out blocks; the cast is an XLA epilogue here
-    # (correct, just not write-reduced — only non-128-aligned H*W lands here)
-    return out if out_dtype == "float32" else out.astype(out_dtype)
-
-
-def _run_v5(coords, weights, radii, mask, spec, gaussian, sigma, d_offset, d_count, hwt,
-            out_dtype: str = "float32", notrunc: bool = False, lowp: bool | None = None):
-    """v5 launch: per-atom rows only; axis factors rebuilt in-kernel.
-
-    XLA-side prep is O(V): shift x by the depth slab, transpose weights,
-    stack five per-atom rows into one (B, 8, Vp) block, closed-form ranges.
-    No O(Dl*Vp) or O(H*Vp) arrays exist anywhere (see _kernel_v5).
-
-    ``notrunc``: the thresh row (and plane ranges) carry the underflow radius
-    notrunc_r2_thresh(r^2) while the gaussian coefficient stays -0.5/(sigma^2
-    r^2) — the identical kernel then computes the reference torch backend's
-    no-cutoff gaussian, pruned only where it is negligible."""
-    b, vp, c = weights.shape
     dim = spec.dimension
     dl = dim if d_count is None else d_count
-    hw = dim * dim
-    cp = round_up(max(c, 1), 8)
-    res = float(spec.resolution)
-    half_width = float(spec.width / 2.0)
+    bd, bh, bw = BRICK
+    nb = (-(-dl // bd), -(-dim // bh), -(-dim // bw))
+    nbricks = nb[0] * nb[1] * nb[2]
+    nc = vp // a
+    reach = jnp.where(mask, jnp.sqrt(r2_th), -jnp.inf).reshape(b, nc, a)
+    d_off = jnp.asarray(d_offset, jnp.int32).reshape(1)
+    counts, lists = _chunk_lists(coords.reshape(b, nc, a, 3), reach, spec, d_off[0], dl, BRICK)
 
-    wt = jnp.swapaxes(weights, 1, 2).astype(jnp.float32)  # (B, Cp, Vp)
-    if mask is not None:
-        wt = jnp.where(mask[:, None, :], wt, 0.0)
-    if cp != c:
-        wt = jnp.pad(wt, ((0, 0), (0, cp - c), (0, 0)))
-
-    r2 = radii * radii
-    if mask is not None:
-        r2 = jnp.where(mask, r2, 1.0)
-    r2_th = notrunc_r2_thresh(r2, sigma) if notrunc else r2
-    xs = coords[..., 0] - jnp.asarray(d_offset, jnp.float32) * res  # slab-shifted x
-    zero = jnp.zeros_like(r2)
-    coef = -(0.5 / (sigma * sigma)) / r2 if gaussian else zero
-    atom_rows = jnp.stack(
-        [xs, coords[..., 1], coords[..., 2], r2_th, coef, zero, zero, zero], axis=1
-    )  # (B, 8, Vp)
-
-    cast = out_dtype != "float32"
     odt = jnp.dtype(out_dtype)
-    ct = _channel_tile(cp, dl, hwt)
-    # per-step VMEM working set: dyz2 + eyz + dens tiles of (hwt, a);
-    # the cast path adds an f32 scratch accumulator next to the smaller out block
-    out_bytes = ct * dl * hwt * (4 + odt.itemsize) if cast else ct * dl * hwt * 4
-    a = _atom_chunk(vp, hwt, out_bytes, streams=1)
-    nvc = vp // a
-    nhwt = hw // hwt
-    hrows = hwt // dim
-    grid = (b, cp // ct, nhwt, nvc)
-
-    coords_shifted = jnp.stack([xs, coords[..., 1], coords[..., 2]], axis=-1)
-    ranges = _plane_ranges_closed(coords_shifted, r2_th, spec, dl, nhwt, hrows, a)
-    range_spec = pl.BlockSpec(
-        (1, 1, 2), lambda bb, cb, ht, vc: ((bb * nhwt + ht) * nvc + vc, 0, 0), memory_space=pltpu.SMEM
-    )
-    atom_spec = pl.BlockSpec((1, 8, a), lambda bb, cb, ht, vc: (bb, 0, vc), memory_space=pltpu.VMEM)
-    wt_spec = pl.BlockSpec((1, ct, a), lambda bb, cb, ht, vc: (bb, cb, vc), memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((1, ct, dl, hwt), lambda bb, cb, ht, vc: (bb, cb, 0, ht), memory_space=pltpu.VMEM)
-    cost = pl.CostEstimate(
-        flops=2 * b * cp * vp * dl * hw + 2 * b * vp * dl * hw,
-        bytes_accessed=b * vp * 8 * 4 + b * cp * dl * hw * odt.itemsize,
-        transcendentals=b * (cp // ct) * vp * hw if gaussian else 0,
-    )
-
-    scratch = [pltpu.VMEM((ct, dl, hwt), jnp.float32)] if cast else []
-    if lowp is None:
-        lowp = cast  # bf16 out -> bf16-input matmul: quantization floor already 2^-8
-    # (explicit lowp is a measurement-only override — benchmarks/experiments/
-    # r5_f32_probe.py uses f32-out + bf16-matmul to decompose the f32 lane)
     kernel = functools.partial(
-        _kernel_v5, gaussian=gaussian, dl=dl, a=a, ct=ct, hwt=hwt, hrows=hrows, dim=dim,
-        res=res, half_width=half_width, nvc=nvc, out_dtype=odt, lowp=lowp,
+        _kernel, gaussian=gaussian, c=c, chunk=a, brick=BRICK, nb=nb, dl=dl, dim=dim,
+        res=float(spec.resolution), half_width=float(spec.width / 2.0), out_dtype=odt,
     )
-    out = pl.pallas_call(
+    return pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[range_spec, atom_spec, wt_spec],
-        out_specs=out_spec,
-        out_shape=jax.ShapeDtypeStruct((b, cp, dl, hw), odt if cast else jnp.float32),
-        scratch_shapes=scratch,
-        cost_estimate=cost,
+        grid=(nbricks, b),
+        out_shape=jax.ShapeDtypeStruct((b, c, dl, dim, dim), odt),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=_interpret(),
-    )(ranges, atom_rows, wt)
-    return out[:, :c, :, :].reshape(b, c, dl, dim, dim)
+        name="voxel_deposit",
+    )(d_off, counts, lists, atom_rows, wt)
 
 
 @functools.partial(
@@ -843,466 +311,36 @@ def voxelize_pallas_batch_channelwise(
     """Batched fused deposit with channel-wise radii ((C,) shared).
 
     Channel expansion: atom ``v`` depositing into channel ``c`` with radius
-    ``r_c`` is a *virtual atom* — same position, radius ``r_c``, weight only
+    ``r_c`` is a *virtual atom*: same position, radius ``r_c``, weight only
     in channel ``c``.  Expanding (B, Vp) atoms to (B, C*Vp) virtual atoms
-    with block-diagonal weights turns channel-wise radii into the plain
-    per-atom problem, so the whole request runs on the measured-optimal v5
-    atom-wise kernel (closed-form ranges, Morton chunk locality, bf16/fp8
-    cast-store) instead of a separate kernel.  Semantics are exactly the
-    reference's per-channel loop (its channel-wise path recomputes the
-    density per channel with that channel's radius,
-    /root/reference/molvoxel/voxelizer/numpy/voxelizer.py:213-224); the v2
-    per-plane-grid kernel this replaced had no pruning and ran ~Dl x more
-    grid steps (VERDICT r2 weak #5).
-
-    Note the work is genuinely C x the atom-wise path (each atom evaluates C
-    different cutoffs/densities) — identical to the reference's semantics.
-    Two shared-dyz2 "native" channel-wise kernels were built and measured
-    SLOWER than this expansion on-chip (per-channel K=128 matmuls: 45.7 vs
-    31.9 us/mol bf16; an in-kernel concat-K variant was compile-pathological
-    on Mosaic) — docs/DESIGN.md round 4b has the numbers.  The expansion's
-    single per-plane matmul carries K = C*Vp lanes, which is exactly the
-    MXU's preferred shape; r4 also moved the Morton sort to the REAL atoms
-    (pre-expansion), so each virtual chunk is single-channel and
-    spatially local, keeping per-chunk ranges channel-tight.
-    """
+    with block-diagonal weights turns channel-wise radii into the per-atom
+    problem, so the request runs on the atom-wise kernel.  The Morton sort
+    runs on the real atoms before the expansion, so every virtual chunk is
+    single-channel and spatially local."""
     b, vp, c = weights.shape
     radii = jnp.asarray(radii, jnp.float32)
-
-    vpad = round_up(vp, 128) - vp
-    if vpad:
-        coords = jnp.pad(coords, ((0, 0), (0, vpad), (0, 0)), constant_values=1e3)
-        weights = jnp.pad(weights, ((0, 0), (0, vpad), (0, 0)))
-        if mask is not None:
-            mask = jnp.pad(mask, ((0, 0), (0, vpad)))
-        vp += vpad
-    if vp > 128 and not presorted:
+    if mask is None:
+        mask = jnp.ones((b, vp), bool)
+    if not presorted:
         coords, weights, _, mask = _sort_atoms_spatially(
-            coords, weights, jnp.ones((b, vp), jnp.float32), mask, spec, d_offset
+            coords, weights, jnp.ones((b, vp), jnp.float32), mask, spec
         )
-
-    # virtual-atom expansion onto the atom-wise kernel — atom v depositing
-    # into channel ci with radius r_ci is a virtual atom with block-diagonal
-    # weights (same position, weight only in channel ci)
+    vpad = round_up(vp, CHUNK) - vp
+    if vpad:
+        coords = jnp.pad(coords, ((0, 0), (0, vpad), (0, 0)))
+        weights = jnp.pad(weights, ((0, 0), (0, vpad), (0, 0)))
+        mask = jnp.pad(mask, ((0, 0), (0, vpad)))
+        vp += vpad
     coords_x = jnp.tile(coords, (1, c, 1))  # (B, C*Vp, 3)
-    radii_x = jnp.repeat(radii, vp)  # (C*Vp,): virtual chunk ci has radius r_ci
+    radii_x = jnp.repeat(radii, vp)  # (C*Vp,): virtual block ci has radius r_ci
     wx = jnp.zeros((b, c * vp, c), weights.dtype)
     for ci in range(c):
         wx = wx.at[:, ci * vp : (ci + 1) * vp, ci].set(weights[:, :, ci])
-    mask_x = jnp.tile(mask, (1, c)) if mask is not None else None
     return voxelize_pallas_batch(
         coords_x, wx, radii_x,
-        spec=spec, density_type=density_type, sigma=sigma, mask=mask_x,
+        spec=spec, density_type=density_type, sigma=sigma, mask=jnp.tile(mask, (1, c)),
         d_offset=d_offset, d_count=d_count, out_dtype=out_dtype, presorted=True,
     )
-
-
-# ------------------------------------------------------------ backward kernel
-
-
-def _kernel_v5_bwd(range_ref, atom_ref, wt_ref, ct_ref, gw_ref, gc_ref, *,
-                   gaussian: bool, dl: int, a: int, cp: int, hwt: int, hrows: int,
-                   dim: int, res: float, half_width: float, lowp: bool = False):
-    """Gradient deposit: cotangent grid -> per-atom (dw, dcoords, dradii).
-
-    The forward kernel's contraction structure with weights and cotangents
-    swapped (ops/autodiff.py): for every active plane of a (tile, chunk)
-    pair,
-
-        P[c, v]  = sum_hw ct[c, hw] * f_yz[hw, v]        (MXU)
-        dw[c, v] += exd[v] * P[c, v]
-        Q[hw, v] = sum_c ct[c, hw] * w[c, v]             (MXU)
-        T        = f_yz * Q                              (VPU)
-
-    and the coordinate/radius gradients are moment sums of T against the
-    in-kernel iota voxel positions (y/z first+second moments; the depth
-    moment is the per-plane scalar dx).  Same pruning (plane ranges +
-    cutoff select), same VMEM discipline — nothing O(V*HW) exists.
-    Reference has no backward at all (torch path is @no_grad,
-    /root/reference/molvoxel/voxelizer/torch/voxelizer.py:115).
-
-    Outputs accumulate across hw-tile grid steps (ht is the innermost grid
-    dim; blocks indexed by (batch, chunk) stay resident and are revisited):
-    gw_ref (1, cp, a); gc_ref (1, 8, a) rows [gx, gy, gz, gr, 0...].
-    Binary density: dw only (indicator gradient is zero a.e.).
-
-    ``lowp`` mirrors the forward's bf16 lane (VERDICT r4 #2): the cotangent
-    block arrives bf16 (HALVING the double-buffered ct tile — the kernel's
-    VMEM hog), eyz/fyz are bf16, and both MXU contractions run single-pass
-    bf16-input (vs 6 HIGHEST passes).  The moment sums and all gradient
-    accumulation stay f32.  Training cotangents are bf16-tolerant by the
-    same 2^-8 argument as the forward's bf16 grids."""
-    ht = pl.program_id(2)
-
-    @pl.when(ht == 0)
-    def _():
-        gw_ref[0] = jnp.zeros((cp, a), jnp.float32)
-        gc_ref[0] = jnp.zeros((8, a), jnp.float32)
-
-    d_lo = range_ref[0, 0, 0]
-    d_hi = range_ref[0, 0, 1]
-
-    @pl.when(d_hi > d_lo)
-    def _():
-        x = atom_ref[0, 0:1, :]  # (1, A)
-        y = atom_ref[0, 1:2, :]
-        z = atom_ref[0, 2:3, :]
-        r2th = atom_ref[0, 3:4, :]
-        coef = atom_ref[0, 4:5, :]
-        rinv = atom_ref[0, 5:6, :]  # 1/r (precomputed; masked atoms 1.0)
-        ay = (jax.lax.broadcasted_iota(jnp.int32, (hrows, 1), 0) + ht * hrows).astype(jnp.float32) * res - half_width
-        az = jax.lax.broadcasted_iota(jnp.int32, (dim, 1), 0).astype(jnp.float32) * res - half_width
-        dy2 = (ay - y) * (ay - y)  # (hrows, A)
-        dz2 = (az - z) * (az - z)  # (W, A)
-        dyz2 = (dy2[:, None, :] + dz2[None, :, :]).reshape(hwt, a)
-        wt = wt_ref[0]  # (cp, A)
-        # voxel-position weight columns over the tile, for the moment sums —
-        # built from a flat (hwt, 1) iota via div/mod (a (hrows, dim) ->
-        # (hwt, 1) reshape is an unsupported Mosaic shape cast).  Rewriting
-        # the five moment reductions as one thin-M (8, hwt) @ (hwt, A) MXU
-        # matmul was built and measured SLOWER (+5-11% on every protein row,
-        # r5_bwd_probe A/B) — thin-M matmul issues are launch-bound and the
-        # VPU passes overlap the MXU; it also needs a bf16-hi+lo basis split
-        # to survive the m2 cancellation (single-bf16 basis failed the
-        # on-device gate at 3.0 err).  Rejected; see docs/DESIGN.md 5b.
-        flat = jax.lax.broadcasted_iota(jnp.int32, (hwt, 1), 0)
-        wy = ((flat // dim) + ht * hrows).astype(jnp.float32) * res - half_width
-        wz = (flat % dim).astype(jnp.float32) * res - half_width
-        if gaussian:
-            ey = jnp.exp(dy2 * coef)
-            ez = jnp.exp(dz2 * coef)
-            if lowp:
-                ey = ey.astype(jnp.bfloat16)
-                ez = ez.astype(jnp.bfloat16)
-            eyz = (ey[:, None, :] * ez[None, :, :]).reshape(hwt, a)
-        if lowp:
-            wt_mm = wt.astype(jnp.bfloat16)
-        else:
-            wt_mm = wt
-
-        def body(d, carry):
-            gw, gx, gy, gz, gr = carry
-            dxv = (d.astype(jnp.float32) * res - half_width) - x  # (1, A)
-            dx2v = dxv * dxv
-            th = r2th - dx2v
-            # ct block is depth-leading (1, dl, cp, hwt): the plane slice
-            # drops a LEADING singleton, preserving the (cp, hwt) tile layout
-            # (a middle-singleton reshape of (cp, 1, hwt) is an unsupported
-            # Mosaic shape cast — caught on-device r4)
-            ct = ct_ref[0, pl.ds(d, 1), :, :].reshape(cp, hwt)  # (cp, hwt)
-            if gaussian:
-                if lowp:
-                    fyz = jnp.where(dyz2 <= th, eyz, jnp.bfloat16(0.0))  # (hwt, A)
-                else:
-                    fyz = jnp.where(dyz2 <= th, eyz, 0.0)  # (hwt, A)
-            else:
-                # select in f32, then cast: scalar bf16 branches hit the i1
-                # splat relayout Mosaic rejects (same as the forward's binary
-                # lowp path)
-                fyz = jnp.where(dyz2 <= th, 1.0, 0.0)
-                if lowp:
-                    fyz = fyz.astype(jnp.bfloat16)
-            if lowp:
-                p = jax.lax.dot_general(
-                    ct, fyz, dimension_numbers=(((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )  # (cp, A)
-            else:
-                p = jax.lax.dot_general(
-                    ct, fyz, dimension_numbers=(((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST,
-                )  # (cp, A)
-            if not gaussian:
-                return (gw + p, gx, gy, gz, gr)
-            exd = jnp.exp(dx2v * coef)  # (1, A)
-            gw = gw + exd * p
-            if lowp:
-                q = jax.lax.dot_general(
-                    ct, wt_mm, dimension_numbers=(((0,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )  # (hwt, A)
-            else:
-                q = jax.lax.dot_general(
-                    ct, wt_mm, dimension_numbers=(((0,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST,
-                )  # (hwt, A)
-            t = fyz * q  # (hwt, A); f32 (q stays f32 — the moment sums
-            # cancel large terms, docstring above)
-            m0 = jnp.sum(t, axis=0, keepdims=True)  # (1, A)
-            m1y = jnp.sum(t * wy, axis=0, keepdims=True)
-            m2yy = jnp.sum(t * (wy * wy), axis=0, keepdims=True)
-            m1z = jnp.sum(t * wz, axis=0, keepdims=True)
-            m2zz = jnp.sum(t * (wz * wz), axis=0, keepdims=True)
-            c2 = (2.0 * coef) * exd
-            gx = gx - c2 * dxv * m0
-            gy = gy + c2 * (y * m0 - m1y)
-            gz = gz + c2 * (z * m0 - m1z)
-            m2 = m2yy - 2.0 * y * m1y + y * y * m0 + m2zz - 2.0 * z * m1z + z * z * m0
-            gr = gr + exd * (-2.0 * coef * rinv) * (dx2v * m0 + m2)
-            return (gw, gx, gy, gz, gr)
-
-        zero_row = jnp.zeros((1, a), jnp.float32)
-        init = (jnp.zeros((cp, a), jnp.float32), zero_row, zero_row, zero_row, zero_row)
-        gw, gx, gy, gz, gr = jax.lax.fori_loop(d_lo, d_hi, body, init)
-        gw_ref[0] += gw
-        gc_ref[0, 0:1, :] += gx
-        gc_ref[0, 1:2, :] += gy
-        gc_ref[0, 2:3, :] += gz
-        gc_ref[0, 3:4, :] += gr
-
-
-@functools.partial(
-    jax.jit, static_argnames=("spec", "density_type", "sigma", "d_count", "presorted", "lowp")
-)
-def voxelize_pallas_bwd_batch(
-    coords: jnp.ndarray,  # (B, Vp, 3)
-    weights: jnp.ndarray,  # (B, Vp, C)
-    radii: jnp.ndarray,  # (Vp,) or (B, Vp)
-    cotangent: jnp.ndarray,  # (B, C, Dl, H, W), any float dtype
-    *,
-    spec: GridSpec,
-    density_type: str = "gaussian",
-    sigma: float = 0.5,
-    mask: jnp.ndarray | None = None,
-    d_offset=0,
-    d_count: int | None = None,
-    presorted: bool = False,
-    lowp: bool = False,
-) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Kernel-speed VJP of voxelize_pallas_batch -> (dcoords, dweights, dradii).
-
-    Shares the forward's spatial sort (same Morton keys -> same permutation;
-    gradients are scattered back through the inverse; ``presorted`` skips
-    both when the caller's atoms are already Morton-ordered — the in-graph
-    bitonic argsort is expensive at protein scale), plane ranges, and
-    tiling.  dradii comes back with the radii's own shape ((Vp,) shared
-    radii get the batch-sum).  Binary density returns zero dcoords/dradii
-    (indicator: gradient zero almost everywhere, matching jnp.where autodiff
-    and the dense path).
-
-    ``lowp``: bf16 cotangent block + single-pass bf16-input matmuls — the
-    production training lane when the forward ran with a bf16/fp8 grid
-    (ops/autodiff routes it off ``out_dtype``).  Gradient accumulation stays
-    f32; accuracy tracks the f32 kernel within the usual 2^-8 budget
-    (tests/test_autodiff.py lowp rows)."""
-    gaussian = density_type in ("gaussian", "gaussian_notrunc")
-    notrunc = density_type == "gaussian_notrunc"
-    b, vp, c = weights.shape
-    radii = jnp.asarray(radii, jnp.float32)
-    shared_radii = radii.ndim == 1
-    radii_b = jnp.broadcast_to(radii[None, :], (b, vp)) if shared_radii else radii
-
-    vpad = round_up(vp, 128) - vp
-    if vpad:
-        coords = jnp.pad(coords, ((0, 0), (0, vpad), (0, 0)), constant_values=1e3)
-        weights = jnp.pad(weights, ((0, 0), (0, vpad), (0, 0)))
-        radii_b = jnp.pad(radii_b, ((0, 0), (0, vpad)), constant_values=1.0)
-        if mask is not None:
-            mask = jnp.pad(mask, ((0, 0), (0, vpad)))
-    vpp = vp + vpad
-
-    # same deterministic order as the forward's _sort_atoms_spatially
-    if vpp > 128 and not presorted:
-        key = morton_keys(coords, spec, mask)
-        order = jnp.argsort(key, axis=1)  # (B, Vpp) stable
-        take2 = lambda arr: jnp.take_along_axis(arr, order, axis=1)
-        take3 = lambda arr: jnp.take_along_axis(arr, order[..., None], axis=1)
-        coords_s, weights_s, radii_s = take3(coords), take3(weights), take2(radii_b)
-        mask_s = take2(mask) if mask is not None else None
-    else:
-        order = None
-        coords_s, weights_s, radii_s, mask_s = coords, weights, radii_b, mask
-
-    dim = spec.dimension
-    dl = dim if d_count is None else d_count
-    hw = dim * dim
-    cp = round_up(max(c, 1), 8)
-    res = float(spec.resolution)
-    half_width = float(spec.width / 2.0)
-    hwt = _row_tile(hw, dim)
-    if hwt is None:
-        raise ValueError("pallas backward needs a 128-aligned H*W (use the dense backward)")
-
-    wt = jnp.swapaxes(weights_s, 1, 2).astype(jnp.float32)  # (B, C, Vpp)
-    if mask_s is not None:
-        wt = jnp.where(mask_s[:, None, :], wt, 0.0)
-    if cp != c:
-        wt = jnp.pad(wt, ((0, 0), (0, cp - c), (0, 0)))
-
-    r2 = radii_s * radii_s
-    if mask_s is not None:
-        r2 = jnp.where(mask_s, r2, 1.0)
-    r2_th = notrunc_r2_thresh(r2, sigma) if notrunc else r2
-    xs = coords_s[..., 0] - jnp.asarray(d_offset, jnp.float32) * res
-    coef = -(0.5 / (sigma * sigma)) / r2 if gaussian else jnp.zeros_like(r2)
-    rinv = 1.0 / jnp.sqrt(r2)
-    zero = jnp.zeros_like(r2)
-    atom_rows = jnp.stack(
-        [xs, coords_s[..., 1], coords_s[..., 2], r2_th, coef, rinv, zero, zero], axis=1
-    )  # (B, 8, Vpp)
-
-    ct_dt = jnp.bfloat16 if lowp else jnp.float32
-    ct = cotangent.astype(ct_dt).reshape(b, c, dl, hw)
-    if cp != c:
-        ct = jnp.pad(ct, ((0, 0), (0, cp - c), (0, 0), (0, 0)))
-    ct = jnp.swapaxes(ct, 1, 2)  # (B, Dl, Cp, HW): depth-leading for the kernel
-
-    # VMEM: the whole (dl, cp, hwt) cotangent tile must fit next to the
-    # working tiles — and it is DOUBLE-BUFFERED (the ct block changes every
-    # ht grid step), so it counts twice.  The atom chunk then shrinks to fit
-    # the ~4 (hwt, a) working arrays (dyz2/eyz/T/Q) beside it — the 128^3
-    # protein config OOM'd scoped VMEM (18.04M > 16M) with the single-count
-    # budget (caught on-device r4).  lowp halves the ct tile.
-    ct_isz = 2 if lowp else 4
-    while hwt > 128 and 2 * cp * dl * hwt * ct_isz > _OUT_BUDGET:
-        if (hwt // 2) % dim == 0 and ((hwt // 2) // dim) % 8 == 0:
-            hwt //= 2
-        else:
-            break
-    ct_bytes = cp * dl * hwt * ct_isz
-    if 2 * ct_bytes > 2 * _OUT_BUDGET:
-        raise ValueError("cotangent tile exceeds the VMEM budget (use the dense backward)")
-    a = _atom_chunk(vpp, hwt, 2 * ct_bytes, streams=4)
-    nvc = vpp // a
-    nhwt = hw // hwt
-    hrows = hwt // dim
-    grid = (b, nvc, nhwt)  # ht innermost: output blocks revisited, accumulate
-
-    coords_shifted = jnp.stack([xs, coords_s[..., 1], coords_s[..., 2]], axis=-1)
-    ranges = _plane_ranges_closed(coords_shifted, r2_th, spec, dl, nhwt, hrows, a)
-    range_spec = pl.BlockSpec(
-        (1, 1, 2), lambda bb, vc, ht: ((bb * nhwt + ht) * nvc + vc, 0, 0), memory_space=pltpu.SMEM
-    )
-    atom_spec = pl.BlockSpec((1, 8, a), lambda bb, vc, ht: (bb, 0, vc), memory_space=pltpu.VMEM)
-    wt_spec = pl.BlockSpec((1, cp, a), lambda bb, vc, ht: (bb, 0, vc), memory_space=pltpu.VMEM)
-    ct_spec = pl.BlockSpec((1, dl, cp, hwt), lambda bb, vc, ht: (bb, 0, 0, ht), memory_space=pltpu.VMEM)
-    gw_spec = pl.BlockSpec((1, cp, a), lambda bb, vc, ht: (bb, 0, vc), memory_space=pltpu.VMEM)
-    gc_spec = pl.BlockSpec((1, 8, a), lambda bb, vc, ht: (bb, 0, vc), memory_space=pltpu.VMEM)
-    cost = pl.CostEstimate(
-        flops=4 * b * cp * vpp * dl * hw,
-        bytes_accessed=b * (cp * dl * hw * 4 + vpp * (8 + cp) * 4 * nhwt),
-        transcendentals=b * vpp * hw if gaussian else 0,
-    )
-    kernel = functools.partial(
-        _kernel_v5_bwd, gaussian=gaussian, dl=dl, a=a, cp=cp, hwt=hwt, hrows=hrows,
-        dim=dim, res=res, half_width=half_width, lowp=lowp,
-    )
-    gw_t, gc_rows = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[range_spec, atom_spec, wt_spec, ct_spec],
-        out_specs=(gw_spec, gc_spec),
-        out_shape=(
-            jax.ShapeDtypeStruct((b, cp, vpp), jnp.float32),
-            jax.ShapeDtypeStruct((b, 8, vpp), jnp.float32),
-        ),
-        cost_estimate=cost,
-        interpret=_interpret(),
-    )(ranges, atom_rows, wt, ct)
-
-    gw_s = jnp.swapaxes(gw_t[:, :c, :], 1, 2)  # (B, Vpp, C), sorted order
-    gc_s = jnp.stack([gc_rows[:, 0], gc_rows[:, 1], gc_rows[:, 2]], axis=-1)  # (B, Vpp, 3)
-    gr_s = gc_rows[:, 3]  # (B, Vpp)
-    if mask_s is not None:
-        gw_s = jnp.where(mask_s[..., None], gw_s, 0.0)
-        gc_s = jnp.where(mask_s[..., None], gc_s, 0.0)
-        gr_s = jnp.where(mask_s, gr_s, 0.0)
-
-    if order is not None:  # scatter back to input atom order
-        inv = jnp.argsort(order, axis=1)
-        gw = jnp.take_along_axis(gw_s, inv[..., None], axis=1)
-        gc = jnp.take_along_axis(gc_s, inv[..., None], axis=1)
-        gr = jnp.take_along_axis(gr_s, inv, axis=1)
-    else:
-        gw, gc, gr = gw_s, gc_s, gr_s
-    gw, gc, gr = gw[:, :vp], gc[:, :vp], gr[:, :vp]
-    dr = jnp.sum(gr, axis=0) if shared_radii else gr
-    return gc, gw, dr
-
-
-@functools.partial(
-    jax.jit, static_argnames=("spec", "density_type", "sigma", "d_count", "presorted", "lowp")
-)
-def voxelize_pallas_bwd_batch_channelwise(
-    coords: jnp.ndarray,  # (B, Vp, 3)
-    weights: jnp.ndarray,  # (B, Vp, C)
-    radii: jnp.ndarray,  # (C,)
-    cotangent: jnp.ndarray,  # (B, C, Dl, H, W)
-    *,
-    spec: GridSpec,
-    density_type: str = "gaussian",
-    sigma: float = 0.5,
-    mask: jnp.ndarray | None = None,
-    d_offset=0,
-    d_count: int | None = None,
-    presorted: bool = False,
-    lowp: bool = False,
-) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Kernel-speed channel-wise VJP via the forward's virtual-atom expansion.
-
-    The forward already reduces channel-wise radii to the plain per-atom
-    problem (voxelize_pallas_batch_channelwise: atom v depositing into
-    channel c with radius r_c is a virtual atom with block-diagonal weights).
-    The VJP of that expansion is linear bookkeeping, so the backward runs
-    the SAME pruned kernel on the expanded problem and folds the virtual
-    gradients back (VERDICT r4 #3 — the r4 dense-replay fallback paid a full
-    O(V*D^3) dense VJP at protein scale):
-
-    - dcoords[v]   = sum_c dc_x[c*Vp + v]        (coords were tiled C times)
-    - dweights[v,c] = dw_x[c*Vp + v, c]          (block-diagonal extraction)
-    - dradii[c]    = sum_v dr_x[c*Vp + v]        (radius r_c repeated Vp times)
-
-    Semantics: exactly the reference's per-channel recompute loop
-    (/root/reference/molvoxel/voxelizer/numpy/voxelizer.py:213-224),
-    differentiated.  Sorting mirrors the forward channelwise path: Morton
-    keys on the REAL atoms, expansion on the sorted order, presorted inner
-    call; gradients scatter back through the inverse permutation."""
-    b, vp, c = weights.shape
-    radii = jnp.asarray(radii, jnp.float32)
-
-    vpad = round_up(vp, 128) - vp
-    if vpad:
-        coords = jnp.pad(coords, ((0, 0), (0, vpad), (0, 0)), constant_values=1e3)
-        weights = jnp.pad(weights, ((0, 0), (0, vpad), (0, 0)))
-        if mask is not None:
-            mask = jnp.pad(mask, ((0, 0), (0, vpad)))
-    vpp = vp + vpad
-
-    # same deterministic order as the forward's _sort_atoms_spatially on the
-    # real atoms (pre-expansion: virtual chunks stay single-channel and local)
-    if vpp > 128 and not presorted:
-        key = morton_keys(coords, spec, mask)
-        order = jnp.argsort(key, axis=1)  # (B, Vpp) stable
-        coords = jnp.take_along_axis(coords, order[..., None], axis=1)
-        weights = jnp.take_along_axis(weights, order[..., None], axis=1)
-        mask = jnp.take_along_axis(mask, order, axis=1) if mask is not None else None
-    else:
-        order = None
-
-    coords_x = jnp.tile(coords, (1, c, 1))  # (B, C*Vpp, 3)
-    radii_x = jnp.repeat(radii, vpp)  # (C*Vpp,)
-    wx = jnp.zeros((b, c * vpp, c), weights.dtype)
-    for ci in range(c):
-        wx = wx.at[:, ci * vpp : (ci + 1) * vpp, ci].set(weights[:, :, ci])
-    mask_x = jnp.tile(mask, (1, c)) if mask is not None else None
-
-    dc_x, dw_x, dr_x = voxelize_pallas_bwd_batch(
-        coords_x, wx, radii_x, cotangent,
-        spec=spec, density_type=density_type, sigma=sigma, mask=mask_x,
-        d_offset=d_offset, d_count=d_count, presorted=True, lowp=lowp,
-    )
-    dc = dc_x.reshape(b, c, vpp, 3).sum(axis=1)  # (B, Vpp, 3)
-    dw = jnp.diagonal(dw_x.reshape(b, c, vpp, c), axis1=1, axis2=3)  # (B, Vpp, C)
-    dr = dr_x.reshape(c, vpp).sum(axis=1)  # (C,)
-
-    if order is not None:  # scatter back to input atom order
-        inv = jnp.argsort(order, axis=1)
-        dc = jnp.take_along_axis(dc, inv[..., None], axis=1)
-        dw = jnp.take_along_axis(dw, inv[..., None], axis=1)
-    return dc[:, :vp], dw[:, :vp], dr
-
-
-# ------------------------------------------------- single-molecule wrappers
 
 
 def voxelize_pallas(coords, weights, radii, *, spec, density_type="gaussian", sigma=0.5, mask=None,
@@ -1317,8 +355,8 @@ def voxelize_pallas(coords, weights, radii, *, spec, density_type="gaussian", si
     return out[0]
 
 
-def voxelize_pallas_channelwise(coords, weights, radii, *, spec, density_type="gaussian", sigma=0.5, mask=None,
-                                d_offset=0, d_count=None):
+def voxelize_pallas_channelwise(coords, weights, radii, *, spec, density_type="gaussian", sigma=0.5,
+                                mask=None, d_offset=0, d_count=None):
     """Single-molecule channel-wise fused deposit -> (C, Dl, H, W)."""
     out = voxelize_pallas_batch_channelwise(
         coords[None], weights[None], jnp.asarray(radii, jnp.float32),

@@ -1,4 +1,4 @@
-"""Fully-separable gaussian deposit (no radius cutoff) — pure MXU.
+"""Fully-separable gaussian deposit (no radius cutoff): one matmul.
 
 Without the radius cutoff the gaussian factorizes along the three axes:
 
@@ -9,9 +9,8 @@ so the whole voxelization collapses to ONE well-shaped matmul:
     U[(d, c), v] = w[v, c] * ex[v, d]          (tiny elementwise outer)
     out[(d, c), hw] = U @ eyz[v, hw]           (M = D*C, K = V, N = H*W)
 
-M and N are both large, so the MXU runs at full efficiency — unlike the
-exact-cutoff kernel, whose per-plane masks force thin (M = C) matmuls.  XLA
-maps this directly; no Pallas needed, and it is backend-portable.
+M and N are both large, so XLA hands it to a library matmul directly; no
+kernel is needed, and it is backend-portable.
 
 Semantics note: this is exactly the reference *torch* backend's gaussian.
 Its radius cutoff is dead code — ``masked_fill_`` tests already-exponentiated
@@ -31,13 +30,8 @@ import jax.numpy as jnp
 from ..core.config import GridSpec
 from .dense import _axis_positions
 
-# HIGHEST keeps the no-cutoff path at golden-parity accuracy on-device
-# (~4e-6 vs a float64 host oracle; HIGH's 3-pass bf16 measures 2.0e-5, over
-# the 1e-5 budget vs the reference torch-backend goldens).  Measured honestly
-# (materialized grids), HIGHEST costs only ~15% here (12.7 -> 14.7 us/mol on
-# the 64^3 x4ch ligand workload) because the path is write-bound — the 2.2x
-# gap seen earlier was an artifact of XLA folding the un-fenced benchmark
-# consumer.  Reference semantics: torch/voxelizer.py:564-567 (f32 CUDA).
+# HIGHEST is true f32 (no TF32): the float32 lane must hold the 1e-5 golden
+# budget.  Reference semantics: torch/voxelizer.py:564-567 (f32 CUDA).
 _PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -99,11 +93,10 @@ def voxelize_separable_batch(
     if out_dtype == "float32":
         out = jnp.einsum("bvm,bvn->bmn", u, eyz, preferred_element_type=dtype, precision=_PRECISION)
     else:
-        # reduced-precision output: quantization floor is already <= 2^-8
-        # relative, so bf16 einsum inputs (one MXU pass vs HIGHEST's six) are
-        # free accuracy-wise; the contraction still accumulates f32 in the
-        # MXU.  bf16 comes straight out of the matmul; narrower grids (fp8)
-        # get a cast epilogue XLA fuses into the matmul's output write.
+        # reduced-precision output: its quantization floor is already 2^-8
+        # relative, so the contraction takes bf16 inputs (tensor cores) and
+        # still accumulates in f32.  bf16 comes straight out of the matmul;
+        # narrower grids (fp8) get a cast epilogue.
         out = jnp.einsum(
             "bvm,bvn->bmn", u.astype(jnp.bfloat16), eyz.astype(jnp.bfloat16),
             preferred_element_type=jnp.bfloat16,

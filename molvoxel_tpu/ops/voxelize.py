@@ -2,14 +2,15 @@
 
 One logical op, two implementations:
 
-- ``dense``: pure-XLA (ops/dense.py) — runs everywhere, parity reference.
-- ``pallas``: fused TPU kernel (ops/pallas_deposit.py) — the production path
-  on TPU hardware.
+- ``dense``: pure XLA (ops/dense.py); runs everywhere and is the parity
+  reference.
+- ``pallas``: the fused cutoff deposit (ops/pallas_deposit.py), a Pallas
+  kernel compiled through Triton; the production path on the GPU.
 
-``impl="auto"`` picks pallas on TPU backends and dense elsewhere.  This
-replaces the reference's ``library=`` string dispatch between numpy/numba/
-torch classes (/root/reference/molvoxel/__init__.py:33-39): the choice here is
-per-call and purely about which compiled program computes the identical result.
+``impl="auto"`` picks the kernel on the GPU and the dense path on the CPU.
+This replaces the reference's ``library=`` string dispatch between numpy/
+numba/torch classes: the choice here is per call and purely about which
+compiled program computes the identical result.
 """
 
 from __future__ import annotations
@@ -22,42 +23,31 @@ from .dense import voxelize_dense, voxelize_dense_channelwise
 
 
 def default_impl() -> str:
-    try:
-        platform = jax.default_backend()
-    except Exception:
-        platform = "cpu"
-    return "pallas" if platform == "tpu" else "dense"
+    """"pallas" on the GPU, "dense" on the CPU; any other platform raises."""
+    platform = jax.default_backend()
+    if platform == "gpu":
+        return "pallas"
+    if platform == "cpu":
+        return "dense"
+    raise RuntimeError(f"no voxelization path for platform {platform!r}")
 
 
-def default_batch_impl() -> str:
-    """Implementation for batched calls.
-
-    On TPU the natively batched Pallas kernel (leading batch grid dimension)
-    is used — vmap-of-pallas_call miscompiles in this toolchain, which is why
-    batching is built into the kernel itself rather than mapped over it.
-    """
-    return default_impl()
+# gaussian_notrunc routing, measured on one H100 (PERF.md): the pruned kernel
+# beat the separable contraction only in the float32 lane at protein scale
+# (3,262 atoms at 128^3); the separable path won or tied in the bf16 lane and
+# for the ligand batch at 64^3.
+NOTRUNC_KERNEL_MIN_ATOMS = 1024
+NOTRUNC_KERNEL_MIN_DIM = 128
 
 
-# gaussian_notrunc routing crossover, measured on-chip (benchmarks/
-# experiments/r4_notrunc_probe.py, bf16+f32): the pruned Pallas kernel
-# (underflow-radius cutoff, pallas_deposit.notrunc_r2_thresh) beats the
-# separable einsum only when BOTH the atom count and the grid are large —
-# protein 128^3: 462 vs 1016 us/mol bf16 (2.2x); but protein 48^3: 135 vs 54
-# (separable wins — its einsum is one full-MXU pass and the grid is small),
-# complex 48^3: 138 vs 94, ligand 128^3: 40 vs 31.  The separable cost is
-# O(V * (C*Dl + H*W)) bytes of eyz/u temporaries per molecule, so it loses
-# when depth (or the 256^3-class H*W plane) blows those up.
-NOTRUNC_PALLAS_MIN_ATOMS = 1024
-NOTRUNC_PALLAS_MIN_DEPTH = 96
-NOTRUNC_PALLAS_MIN_DIM = 192
-
-
-def notrunc_use_pallas(num_atoms: int, dim: int = 0, dl: int | None = None) -> bool:
-    """True when gaussian_notrunc should run on the pruned Pallas kernel."""
-    dl = dim if dl is None else dl
-    return num_atoms >= NOTRUNC_PALLAS_MIN_ATOMS and (
-        dl >= NOTRUNC_PALLAS_MIN_DEPTH or dim >= NOTRUNC_PALLAS_MIN_DIM
+def notrunc_use_pallas(num_atoms: int, dim: int, out_dtype: str = "float32") -> bool:
+    """True when gaussian_notrunc should run on the pruned kernel (underflow-
+    radius cutoff, pallas_deposit.notrunc_r2_thresh) rather than the
+    separable contraction (ops/separable.py)."""
+    return (
+        out_dtype == "float32"
+        and num_atoms >= NOTRUNC_KERNEL_MIN_ATOMS
+        and dim >= NOTRUNC_KERNEL_MIN_DIM
     )
 
 
@@ -85,11 +75,10 @@ def voxelize(
     if density_type == "gaussian_notrunc" and not (
         impl == "pallas"
         and not channelwise_radii
-        and notrunc_use_pallas(coords.shape[0], spec.dimension, d_count)
+        and notrunc_use_pallas(coords.shape[0], spec.dimension)
     ):
-        # fully-separable: one well-shaped matmul, backend-portable
-        # (ops/separable.py); protein-scale inputs route to the pruned
-        # Pallas kernel instead (underflow-radius cutoff, see batch.py)
+        # fully-separable: one well-shaped matmul (ops/separable.py);
+        # protein-scale f32 inputs route to the pruned kernel instead
         from .separable import voxelize_separable
 
         return voxelize_separable(

@@ -9,8 +9,8 @@ The reference has no distributed execution of any kind (SURVEY.md section
   partitioned, so no halo exchange is needed at all.
 
 Collectives (psum for metrics, all_gather when a full grid must be
-assembled) are inserted by XLA from shard_map/pjit annotations and ride the
-ICI.  Multi-host execution uses the same code after
+assembled) are inserted by XLA from shard_map/pjit annotations; on the GPU
+they run over NCCL.  Multi-host execution uses the same code after
 ``jax.distributed.initialize`` (each process feeds its local shard).
 """
 

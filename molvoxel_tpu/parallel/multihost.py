@@ -24,7 +24,7 @@ max over a tiny flag array keeps the SPMD programs in lockstep — exhausted
 processes feed all-padding batches until every stripe is drained.
 
 Single-process meshes work unchanged (the collective degenerates), so the
-same code runs on one chip, a virtual CPU mesh, or a pod.
+same code runs on one device, a virtual CPU mesh, or several hosts.
 """
 
 from __future__ import annotations

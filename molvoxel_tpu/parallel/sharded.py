@@ -14,7 +14,7 @@ Three execution schemes, all over a (data, depth) Mesh (parallel/mesh.py):
    (the library's throughput/qc metric).
 
 Inside every shard the compute is the same batched op the single-device path
-uses (ops.batch.voxelize_batch -> natively batched Pallas kernel on TPU).
+uses (ops.batch.voxelize_batch -> the batched deposit kernel on the GPU).
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def voxelize_batch_dp(
         mesh=mesh,
         in_specs=(P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS)),
         out_specs=P(DATA_AXIS),
-        check_vma=False,  # pallas_call does not propagate vma inside shard_map
+        check_vma=False,  # the Pallas deposit's output carries no varying-axes type
     )
     return shard(coords, weights, mask, centers, keys)
 
@@ -136,7 +136,7 @@ def voxelize_depth_sharded(
         mesh=mesh,
         in_specs=(P(), P(), P(), P(), P()),
         out_specs=P(None, DEPTH_AXIS, None, None),
-        check_vma=False,  # pallas_call does not propagate vma inside shard_map
+        check_vma=False,  # the Pallas deposit's output carries no varying-axes type
     )
     return shard(coords, weights, mask, center, key)
 
@@ -195,6 +195,6 @@ def voxelize_batch_2d(
         mesh=mesh,
         in_specs=(P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS)),
         out_specs=(P(DATA_AXIS, None, DEPTH_AXIS, None, None), P()),
-        check_vma=False,  # pallas_call does not propagate vma inside shard_map
+        check_vma=False,  # the Pallas deposit's output carries no varying-axes type
     )
     return shard(coords, weights, mask, centers, keys)

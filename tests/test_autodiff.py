@@ -187,11 +187,8 @@ SPEC16 = GridSpec(resolution=0.5, dimension=16)
 
 @pytest.mark.parametrize("density", ["gaussian", "binary", "gaussian_notrunc"])
 def test_pallas_backward_kernel_matches_dense(rng, density):
-    """dim=16 is row-tileable -> the Pallas BACKWARD kernel runs (not the
-    dense replay); all three grads must match the dense-path VJP."""
-    from molvoxel_tpu.ops.pallas_deposit import pallas_bwd_supported
-
-    assert pallas_bwd_supported(SPEC16, 2)
+    """grad through the kernel's custom_vjp matches the dense-path VJP for
+    all three inputs and every density."""
     coords, weights, radii, _ = small_cloud(rng, v=10)
     target = jnp.asarray(rng.normal(size=(2, 16, 16, 16)).astype(np.float32))
     vp = 128
@@ -225,8 +222,8 @@ def test_pallas_backward_kernel_matches_dense(rng, density):
 
 
 def test_pallas_backward_protein_scale(rng):
-    """Multi-chunk (V=512) backward at 16^3: sort/inverse-scatter, plane
-    ranges, and tile accumulation all engage; grads must match dense."""
+    """Multi-chunk (V=512) backward at 16^3: the forward sorts and culls
+    atom chunks; grads must match dense."""
     v, vp, c = 400, 512, 3
     coords = jnp.asarray(rng.uniform(-3.5, 3.5, (vp, 3)).astype(np.float32))
     weights = jnp.asarray(rng.uniform(0.1, 1.0, (vp, c)).astype(np.float32))
@@ -248,40 +245,9 @@ def test_pallas_backward_protein_scale(rng):
         np.testing.assert_allclose(g_pallas, g_dense, atol=5e-4, err_msg=f"argnum={argnum}")
 
 
-def test_pallas_backward_depth_slab(rng):
-    """Backward through a depth slab (d_offset/d_count) — the depth-sharded
-    training configuration."""
-    from molvoxel_tpu.ops.pallas_deposit import voxelize_pallas_bwd_batch
-
-    v, vp, c = 20, 128, 2
-    coords = np.zeros((vp, 3), np.float32)
-    coords[:v] = rng.uniform(-2.5, 2.5, (v, 3))
-    weights = np.zeros((vp, c), np.float32)
-    weights[:v] = rng.uniform(size=(v, c))
-    radii = np.ones((vp,), np.float32)
-    mask = np.arange(vp) < v
-    ct = rng.normal(size=(1, c, 8, 16, 16)).astype(np.float32)
-
-    dc, dw, dr = voxelize_pallas_bwd_batch(
-        jnp.asarray(coords)[None], jnp.asarray(weights)[None], jnp.asarray(radii),
-        jnp.asarray(ct), spec=SPEC16, density_type="gaussian", sigma=0.5,
-        mask=jnp.asarray(mask)[None], d_offset=4, d_count=8,
-    )
-
-    def f(crd, w, r):
-        return voxelize_dense(crd, w, r, spec=SPEC16, density_type="gaussian", sigma=0.5,
-                              mask=jnp.asarray(mask), d_offset=4, d_count=8)
-
-    _, vjp = jax.vjp(f, jnp.asarray(coords), jnp.asarray(weights), jnp.asarray(radii))
-    ec, ew, er = vjp(jnp.asarray(ct[0]))
-    np.testing.assert_allclose(np.asarray(dc[0]), np.asarray(ec), atol=2e-4)
-    np.testing.assert_allclose(np.asarray(dw[0]), np.asarray(ew), atol=2e-4)
-    np.testing.assert_allclose(np.asarray(dr), np.asarray(er), atol=2e-4)
-
-
 def test_batched_pallas_grad(rng):
     """jax.grad through the BATCHED pallas path (the training-step shape)
-    runs the kernel backward and matches the dense-path batched VJP."""
+    matches the dense-path batched VJP."""
     import molvoxel_tpu.ops.batch as ob
 
     b, vp, v, c = 2, 128, 20, 3
@@ -338,41 +304,9 @@ def test_batched_pallas_grad_protein_scale(rng):
         gd = np.asarray(jax.grad(loss("dense"), argnums=argnum)(*args))
         np.testing.assert_allclose(gp, gd, atol=6e-4, err_msg=f"argnum={argnum}")
 
-def test_channelwise_backward_kernel_matches_dense(rng):
-    """Channel-wise radii VJP runs through the virtual-atom expansion on the
-    Pallas backward kernel (no dense replay) and matches the dense-path VJP
-    at multi-chunk scale (V=512 -> C*V=1536 virtual atoms)."""
-    from molvoxel_tpu.ops.dense import voxelize_dense_channelwise
-    from molvoxel_tpu.ops.pallas_deposit import voxelize_pallas_bwd_batch_channelwise
-
-    v, vp, c = 400, 512, 3
-    coords = jnp.asarray(rng.uniform(-3.5, 3.5, (vp, 3)).astype(np.float32))
-    weights = jnp.asarray(rng.uniform(0.1, 1.0, (vp, c)).astype(np.float32))
-    radii = jnp.asarray(np.array([0.9, 1.2, 1.5], np.float32))
-    mask = jnp.asarray(np.arange(vp) < v)
-    ct = jnp.asarray(rng.normal(size=(1, c, 16, 16, 16)).astype(np.float32))
-
-    dc, dw, dr = voxelize_pallas_bwd_batch_channelwise(
-        coords[None], weights[None], radii, ct,
-        spec=SPEC16, density_type="gaussian", sigma=0.5, mask=mask[None],
-    )
-
-    def f(crd, w, r):
-        return voxelize_dense_channelwise(
-            crd, w, r, spec=SPEC16, density_type="gaussian", sigma=0.5, mask=mask
-        )
-
-    _, vjp = jax.vjp(f, coords, weights, radii)
-    ec, ew, er = vjp(ct[0])
-    np.testing.assert_allclose(np.asarray(dc[0]), np.asarray(ec), atol=6e-4)
-    np.testing.assert_allclose(np.asarray(dw[0]), np.asarray(ew), atol=6e-4)
-    np.testing.assert_allclose(np.asarray(dr), np.asarray(er), rtol=2e-4, atol=6e-4)
-
-
 def test_channelwise_grad_through_voxelize(rng):
-    """jax.grad of a channel-wise pallas voxelization routes through the
-    expansion backward (ops/autodiff._bwd channelwise branch) and matches
-    the dense path end to end."""
+    """jax.grad of a channel-wise pallas voxelization (virtual-atom
+    expansion forward) matches the dense path end to end."""
     v, vp, c = 200, 256, 2
     coords = jnp.asarray(rng.uniform(-2.5, 2.5, (vp, 3)).astype(np.float32))
     weights = jnp.asarray(rng.uniform(0.1, 1.0, (vp, c)).astype(np.float32))
@@ -394,35 +328,10 @@ def test_channelwise_grad_through_voxelize(rng):
         np.testing.assert_allclose(gp, gd, atol=5e-4, err_msg=f"argnum={argnum}")
 
 
-@pytest.mark.parametrize("density", ["gaussian", "binary"])
-def test_backward_lowp_tracks_f32(rng, density):
-    """The backward's bf16 lane (bf16 cotangent block + single-pass matmuls)
-    tracks the f32 kernel within the 2^-8 budget — the training path when
-    the forward produced bf16/fp8 grids."""
-    from molvoxel_tpu.ops.pallas_deposit import voxelize_pallas_bwd_batch
-
-    v, vp, c = 100, 128, 2
-    coords = np.zeros((vp, 3), np.float32)
-    coords[:v] = rng.uniform(-2.5, 2.5, (v, 3))
-    weights = np.zeros((vp, c), np.float32)
-    weights[:v] = rng.uniform(0.1, 1.0, (v, c))
-    radii = jnp.ones((vp,), jnp.float32)
-    mask = jnp.asarray(np.arange(vp) < v)
-    ct = jnp.asarray(rng.normal(size=(1, c, 16, 16, 16)).astype(np.float32))
-
-    args = (jnp.asarray(coords)[None], jnp.asarray(weights)[None], radii, ct)
-    kw = dict(spec=SPEC16, density_type=density, sigma=0.5, mask=mask[None])
-    dc32, dw32, dr32 = voxelize_pallas_bwd_batch(*args, **kw)
-    dcl, dwl, drl = voxelize_pallas_bwd_batch(*args, lowp=True, **kw)
-    for g32, gl in ((dc32, dcl), (dw32, dwl), (dr32, drl)):
-        g32, gl = np.asarray(g32), np.asarray(gl)
-        scale = max(np.abs(g32).max(), 1e-6)
-        np.testing.assert_allclose(gl, g32, atol=3e-2 * scale)
-
-
 def test_batched_grad_bf16_out_uses_lowp(rng):
     """jax.grad through the batched pallas path with a bf16 grid output runs
-    (the lowp backward) and stays within bf16 tolerance of the dense VJP."""
+    (the dense VJP of a bf16 cotangent) and stays within bf16 tolerance of
+    the f32 dense VJP."""
     import molvoxel_tpu.ops.batch as ob
 
     b, vp, v, c = 2, 128, 20, 3
@@ -452,3 +361,73 @@ def test_batched_grad_bf16_out_uses_lowp(rng):
         gd = np.asarray(jax.grad(loss("dense", "float32"), argnums=argnum)(*args))
         scale = max(np.abs(gd).max(), 1e-6)
         np.testing.assert_allclose(gp, gd, atol=3e-2 * scale, err_msg=f"argnum={argnum}")
+
+
+def test_pallas_grad_depth_slab(rng):
+    """Gradient through a depth slab (d_offset/d_count), the depth-sharded
+    training configuration."""
+    v, vp, c = 20, 32, 2
+    coords = jnp.asarray(np.pad(rng.uniform(-2.5, 2.5, (v, 3)), ((0, vp - v), (0, 0))).astype(np.float32))
+    weights = jnp.asarray(np.pad(rng.uniform(size=(v, c)), ((0, vp - v), (0, 0))).astype(np.float32))
+    radii = jnp.ones((vp,), jnp.float32)
+    mask = jnp.arange(vp) < v
+    target = jnp.asarray(rng.normal(size=(c, 8, 16, 16)).astype(np.float32))
+
+    def loss_impl(impl):
+        def loss(crd, w):
+            out = voxelize(crd, w, radii, spec=SPEC16, mask=mask, impl=impl, d_offset=4, d_count=8)
+            return jnp.sum(out * target)
+
+        return loss
+
+    for argnum in (0, 1):
+        gp = np.asarray(jax.grad(loss_impl("pallas"), argnums=argnum)(coords, weights))
+        gd = np.asarray(jax.grad(loss_impl("dense"), argnums=argnum)(coords, weights))
+        np.testing.assert_allclose(gp, gd, atol=2e-4, err_msg=f"argnum={argnum}")
+
+
+def test_channelwise_batched_grad_matches_dense(rng):
+    """Channel-wise radii through voxelize_batch: kernel forward, dense VJP."""
+    import molvoxel_tpu.ops.batch as ob
+
+    b, vp, v, c = 2, 64, 40, 3
+    coords = jnp.asarray(rng.uniform(-3, 3, (b, vp, 3)).astype(np.float32))
+    weights = jnp.asarray(rng.uniform(0.1, 1.0, (b, vp, c)).astype(np.float32))
+    radii = jnp.asarray([0.9, 1.2, 1.5], jnp.float32)
+    mask = jnp.asarray(np.broadcast_to(np.arange(vp) < v, (b, vp)))
+    keys = jax.random.split(jax.random.PRNGKey(3), b)
+    target = jnp.asarray(rng.normal(size=(b, c, 16, 16, 16)).astype(np.float32))
+
+    def loss(impl):
+        def f(crd, w, r):
+            out = ob.voxelize_batch(crd, w, r, mask, None, keys, 0.5, spec=SPEC16, impl=impl,
+                                    channelwise=True, random_rotation=True)
+            return jnp.sum(out * target)
+
+        return f
+
+    for argnum in (0, 1, 2):
+        gp = np.asarray(jax.grad(loss("pallas"), argnums=argnum)(coords, weights, radii))
+        gd = np.asarray(jax.grad(loss("dense"), argnums=argnum)(coords, weights, radii))
+        np.testing.assert_allclose(gp, gd, atol=5e-4, err_msg=f"argnum={argnum}")
+
+
+@pytest.mark.parametrize("density", ["gaussian", "binary"])
+def test_kernel_vjp_is_dense_vjp(rng, density):
+    """The gradient rule: the kernel's backward is the VJP of the dense path,
+    applied to the same cotangent."""
+    from molvoxel_tpu.ops.autodiff import _dense_batch, voxelize_pallas_batch_ad
+
+    b, vp, c = 2, 32, 2
+    coords = jnp.asarray(rng.uniform(-2.5, 2.5, (b, vp, 3)).astype(np.float32))
+    weights = jnp.asarray(rng.uniform(0.1, 1.0, (b, vp, c)).astype(np.float32))
+    radii = jnp.asarray(rng.uniform(0.8, 1.4, (b, vp)).astype(np.float32))
+    mask = jnp.asarray(rng.uniform(size=(b, vp)) < 0.8)
+    ct = jnp.asarray(rng.normal(size=(b, c, 16, 16, 16)).astype(np.float32))
+    static = (SPEC16, density, 0.5, False, None)
+
+    _, vjp_k = jax.vjp(lambda *a: voxelize_pallas_batch_ad(*a, mask, 0, *static, "float32", False),
+                       coords, weights, radii)
+    _, vjp_d = jax.vjp(lambda *a: _dense_batch(*a, mask, 0, *static), coords, weights, radii)
+    for gk, gd in zip(vjp_k(ct), vjp_d(ct)):
+        np.testing.assert_allclose(np.asarray(gk), np.asarray(gd), rtol=1e-6, atol=1e-6)

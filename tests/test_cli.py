@@ -4,6 +4,7 @@ import json
 
 import numpy as np
 
+from molvoxel_tpu.data.fixtures import POCKET_PDB
 from molvoxel_tpu.cli import main
 
 from .test_data import REF_LIGAND
@@ -44,7 +45,7 @@ def test_voxelize_pdb(tmp_path):
     out = tmp_path / "pocket.npz"
     rc = main(
         [
-            "voxelize", "/root/reference/test/10gs/10gs_pocket_nowater.pdb",
+            "voxelize", str(POCKET_PDB),
             "-o", str(out), "--dimension", "16", "--channels", "C,N,O,S",
         ]
     )
@@ -72,7 +73,7 @@ def _mixed_sdf(tmp_path, tail_copies=1):
 
 def test_voxelize_npz_keeps_empty_record_slots(tmp_path):
     """A mid-stream record that filters to 0 atoms keeps its (all-zero) grid
-    slot; the last real molecule's grid is not dropped (round-2 ADVICE)."""
+    slot; the last real molecule's grid is not dropped."""
     path = _mixed_sdf(tmp_path)
     out = tmp_path / "grids.npz"
     rc = main(

@@ -3,6 +3,7 @@
 import numpy as np
 import pytest
 
+from molvoxel_tpu.data.fixtures import LIGAND_SDF, POCKET_PDB
 from molvoxel_tpu import create_voxelizer
 from molvoxel_tpu.data import (
     AtomTypeGetter,
@@ -22,8 +23,8 @@ from molvoxel_tpu.data import (
 )
 from molvoxel_tpu.data.parsers import write_pdb, write_sdf
 
-REF_LIGAND = "/root/reference/test/10gs/10gs_ligand.sdf"
-REF_POCKET = "/root/reference/test/10gs/10gs_pocket_nowater.pdb"
+REF_LIGAND = str(LIGAND_SDF)
+REF_POCKET = str(POCKET_PDB)
 
 
 def make_mol(rng, n=8, nb=4):
@@ -46,10 +47,12 @@ class TestParsers:
 
     def test_read_pdb_fixture(self):
         mol = read_pdb(REF_POCKET)
-        assert mol.num_atoms == 500
-        assert set(mol.symbols) <= {"C", "N", "O", "S", "H"}
-        noh = mol.without_hydrogens()
-        assert noh.num_atoms < mol.num_atoms
+        assert mol.num_atoms == 407
+        assert set(mol.symbols) == {"C", "N", "O", "S"}
+        assert mol.without_hydrogens().num_atoms == mol.num_atoms  # heavy atoms only
+        lig = read_sdf(REF_LIGAND)
+        noh = lig.without_hydrogens()
+        assert noh.num_atoms == 33 < lig.num_atoms
         assert "H" not in noh.symbols
 
     def test_sdf_roundtrip(self, rng, tmp_path):
@@ -204,7 +207,7 @@ class TestPipeline:
             for v in [5, 60, 33]
         ]
         batch = pad_point_clouds(clouds)
-        assert batch.coords.shape == (3, 64, 3)  # small bucket: packable on TPU
+        assert batch.coords.shape == (3, 64, 3)  # small-molecule bucket
         assert batch.mask.sum() == 5 + 60 + 33
         assert list(batch.num_atoms) == [5, 60, 33]
         assert batch.weights[0, 5:].sum() == 0
@@ -536,7 +539,7 @@ class TestPDBModels:
         mols = list(iter_pdb_models(REF_POCKET))
         assert len(mols) == 1
         ref = read_pdb(REF_POCKET)
-        assert mols[0].num_atoms == ref.num_atoms == 500
+        assert mols[0].num_atoms == ref.num_atoms == 407
 
     def test_nmr_ensemble(self, tmp_path):
         from molvoxel_tpu.data import iter_pdb_models
@@ -561,7 +564,7 @@ class TestPDBModels:
 
     def test_empty_model_yields_0x3_coords(self, tmp_path):
         # degenerate MODEL/ENDMDL pair must still carry (0, 3) coords so
-        # downstream coords[:, 0] indexing cannot crash (ADVICE r3)
+        # downstream coords[:, 0] indexing cannot crash
         from molvoxel_tpu.data import iter_pdb_models
 
         body = (

@@ -4,6 +4,7 @@ batching path, shard stitching, and the multi-worker feeder."""
 import numpy as np
 import pytest
 
+from molvoxel_tpu.data.fixtures import LIGAND_SDF, POCKET_PDB
 from molvoxel_tpu.core.config import GridSpec
 from molvoxel_tpu.data.feed import (
     FlatClouds,
@@ -20,7 +21,7 @@ from molvoxel_tpu.data.pipeline import iter_batches, types_to_onehot
 from molvoxel_tpu.data.pointcloud import MolPointCloudMaker
 from molvoxel_tpu.native.fastparse import parse_sdf_file, parse_sdf_flat
 
-LIGAND = "/root/reference/test/10gs/10gs_ligand.sdf"
+LIGAND = str(LIGAND_SDF)
 SYMBOLS = ["C", "N", "O", "S"]
 TABLE = {s: i for i, s in enumerate(SYMBOLS)}
 
@@ -171,7 +172,7 @@ class TestMortonPresort:
 
     def test_compact_batch(self):
         """Presort works on compact batches (weights=None): types permute with
-        coords and num_channels survives (round-2 ADVICE: this crashed)."""
+        coords and num_channels survives (this once crashed)."""
         rng = np.random.default_rng(2)
         counts = np.array([200, 170], np.int64)
         ta = int(counts.sum())
@@ -196,7 +197,7 @@ class TestMortonPresort:
 
     def test_presorted_stream_checksum_matches(self, tmp_path):
         """End-to-end: feeder presort + stream_checksum(presorted=True) equals
-        the unsorted path (protein-scale compact streaming, VERDICT r2 #3)."""
+        the unsorted path (protein-scale compact streaming)."""
         from molvoxel_tpu.parallel.stream import stream_checksum
 
         rng = np.random.default_rng(3)
@@ -269,7 +270,7 @@ class TestFeeder:
     def test_records_fed_counts_empty_molecules(self, tmp_path):
         """A record that becomes 0-atom after H filtering still occupies a
         batch slot; records_fed counts it, molecules_fed does not (the CLI
-        truncates stored grids by records_fed — round-2 ADVICE)."""
+        truncates stored grids by records_fed)."""
         allh = (
             "waterish\n  gen\n\n"
             "  2  0  0  0  0  0  0  0  0  0999 V2000\n"
@@ -567,7 +568,7 @@ def test_iter_wire_mixed_sizes_matches_batch_path(tmp_path):
     from molvoxel_tpu.parallel.stream import stream_checksum
 
     lig = open(LIGAND, "rb").read()
-    pocket = read_pdb("/root/reference/test/10gs/10gs_pocket_nowater.pdb").without_hydrogens()
+    pocket = read_pdb(str(POCKET_PDB)).without_hydrogens()
     psdf = tmp_path / "p.sdf"
     write_sdf(pocket, psdf)
     mixed = tmp_path / "mixed.sdf"
@@ -598,7 +599,7 @@ def test_wire_assemble_native_bounds():
 
 def test_iter_wire_rejects_uncentered_feeder(tmp_path):
     # the C wire assembly always centers; silently ignoring center=False
-    # would change semantics (ADVICE r3) — must raise instead
+    # would change semantics — must raise instead
     from molvoxel_tpu.core import GridSpec
     from molvoxel_tpu.data.feed import SDFBatchFeeder
 

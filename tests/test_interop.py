@@ -6,9 +6,10 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 torch = pytest.importorskip("torch")
 
+from molvoxel_tpu.data.fixtures import LIGAND_SDF
 from molvoxel_tpu.interop import VoxelGridDataset, from_torch, to_torch  # noqa: E402
 
-LIG = "/root/reference/test/10gs/10gs_ligand.sdf"
+LIG = str(LIGAND_SDF)
 
 
 def test_to_torch_f32_roundtrip():

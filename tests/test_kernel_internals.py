@@ -1,104 +1,80 @@
-"""Unit tests for the pallas launch helpers (pure-XLA pieces)."""
+"""Unit tests for the deposit kernel's launch helpers (pure-XLA pieces)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from molvoxel_tpu.core import GridSpec
+from molvoxel_tpu.ops import pallas_deposit
 from molvoxel_tpu.ops.pallas_deposit import (
-    _chunk_rows,
-    _hw_tile,
-    _plane_ranges_axes,
-    _plane_ranges_closed,
-    _row_tile,
+    BRICK,
+    CHUNK,
+    _chunk_lists,
     _sort_atoms_spatially,
     morton_keys,
 )
 
 
-def test_row_tile_standard_dims():
-    for dim in [16, 32, 48, 64, 96, 128, 192, 256, 512]:
-        hwt = _row_tile(dim * dim, dim)
-        assert hwt is not None
-        assert hwt % dim == 0 and hwt % 128 == 0
-        assert (dim * dim) % hwt == 0
-        # Mosaic legality: the dy2 block's sublane dim (whole h-rows) must be
-        # a multiple of 8 or the full H axis (regression: dim=256 picked a
-        # 4-row block and crashed the real-TPU compile)
-        rows = hwt // dim
-        assert rows % 8 == 0 or rows == dim
-    assert _row_tile(12 * 12, 12) is None  # 144 not 128-aligned -> fallback path
+def _lists(xyz, reach, spec, d_offset, dl, brick=BRICK):
+    counts, order = _chunk_lists(jnp.asarray(xyz), jnp.asarray(reach), spec, d_offset, dl, brick)
+    counts, order = np.asarray(counts), np.asarray(order)
+    return [[set(order[b, t, : counts[b, t]]) for t in range(order.shape[1])] for b in range(order.shape[0])]
 
 
-def test_hw_tile_divisors():
-    assert _hw_tile(4096, 1024) == 1024
-    assert _hw_tile(2304, 1024) == 768
-    assert _hw_tile(256, 1024) == 256
-
-
-def test_chunk_rows_layout(rng):
-    b, dl, vp, a = 2, 4, 256, 128
-    x = jnp.asarray(rng.normal(size=(b, dl, vp)).astype(np.float32))
-    rows = np.asarray(_chunk_rows(x, a))
-    assert rows.shape == (b * 2, 1, dl * a)
-    # row b*nvc+vc at [d*a + j] == x[b, d, vc*a + j]
-    xh = np.asarray(x)
-    assert rows[1, 0, 2 * a + 5] == xh[0, 2, a + 5]
-    assert rows[2, 0, 0] == xh[1, 0, 0]
-
-
-def test_plane_ranges_cover_activity(rng):
+@pytest.mark.parametrize("brick,chunk", [(BRICK, CHUNK), ((4, 8, 16), 8)], ids=str)
+def test_chunk_lists_cover_every_reaching_chunk(rng, brick, chunk):
+    """Culling is conservative: any chunk with an atom whose cutoff sphere
+    reaches a voxel centre of a brick is in that brick's list."""
     spec = GridSpec(0.5, 16)
-    b, vp = 1, 128
-    coords = np.zeros((b, vp, 3), np.float32)
-    coords[0, :10] = rng.uniform(-2, 2, (10, 3))
-    r2 = np.ones((b, vp), np.float32)
-    ax = spec.axis()
-    dx2 = (ax[None, :, None] - coords[:, None, :, 0]) ** 2  # (B, D, Vp)
-    dy2t = (ax[None, :, None] - coords[:, None, :, 1]) ** 2  # (B, H, Vp)
-    dz2t = (ax[None, :, None] - coords[:, None, :, 2]) ** 2
-    thresh = r2[:, None, :] - dx2
-    hwt, a = 256, 128
-    ranges = np.asarray(
-        _plane_ranges_axes(jnp.asarray(dy2t), jnp.asarray(dz2t), jnp.asarray(thresh), hwt, a)
-    )
-    assert ranges.shape == (1 * 1 * 1, 1, 2)
-    lo, hi = ranges[0, 0]
-    # planes with any atom within reach must be inside [lo, hi)
-    for d in range(16):
-        active = False
-        for v in range(10):
-            dyz_min = dy2t[0, :, v].min() + dz2t[0, :, v].min()
-            if dyz_min <= thresh[0, d, v]:
-                active = True
-        if active:
-            assert lo <= d < hi
-
-
-def test_plane_ranges_closed_cover_activity(rng):
-    """Closed-form ranges must cover every (tile, chunk, plane) where any
-    voxel of the tile passes the kernel's exact cutoff compare."""
-    spec = GridSpec(0.5, 16)
-    b, vp, dl = 2, 256, 16
-    coords = np.full((b, vp, 3), 1e3, np.float32)
-    coords[:, :40] = rng.uniform(-3.9, 3.9, (b, 40, 3)).astype(np.float32)
-    r2 = np.ones((b, vp), np.float32) * rng.uniform(0.5, 2.0)
-    nhwt, hrows, a = 2, 8, 128
-    ranges = np.asarray(
-        _plane_ranges_closed(jnp.asarray(coords), jnp.asarray(r2), spec, dl, nhwt, hrows, a)
-    ).reshape(b, nhwt, vp // a, 2)
-    ax = spec.axis()
+    b, nc, a = 2, 6, chunk
+    xyz = rng.uniform(-5, 5, (b, nc, a, 3)).astype(np.float32)
+    reach = rng.uniform(0.5, 1.5, (b, nc, a)).astype(np.float32)
+    reach[:, -1, a // 2 :] = -np.inf  # masked atoms reach nothing
+    lists = _lists(xyz, reach, spec, 0, 16, brick)
+    ax = np.arange(16) * 0.5 - 4.0
+    bd, bh, bw = brick
+    nbh, nbw = -(-16 // bh), -(-16 // bw)
     for bi in range(b):
-        for ht in range(nhwt):
-            ay = ax[ht * hrows : (ht + 1) * hrows]
-            for vc in range(vp // a):
-                lo, hi = ranges[bi, ht, vc]
-                assert 0 <= lo <= hi <= dl
-                for v in range(vc * a, (vc + 1) * a):
-                    x, y, z = coords[bi, v]
-                    dyz2_min = ((ay - y) ** 2).min() + ((ax - z) ** 2).min()
-                    for d in range(dl):
-                        if dyz2_min + (ax[d] - x) ** 2 <= r2[bi, v]:
-                            assert lo <= d < hi, (bi, ht, vc, v, d, lo, hi)
+        for t, listed in enumerate(lists[bi]):
+            td, th, tw = t // (nbh * nbw), (t // nbw) % nbh, t % nbw
+            vox = np.stack(np.meshgrid(ax[td * bd : (td + 1) * bd], ax[th * bh : (th + 1) * bh],
+                                       ax[tw * bw : (tw + 1) * bw], indexing="ij"), -1).reshape(-1, 3)
+            d2 = ((xyz[bi][:, :, None, :] - vox[None, None]) ** 2).sum(-1)  # (nc, a, n)
+            reaches = ((d2 <= reach[bi][..., None] ** 2) & (reach[bi][..., None] > 0)).any(axis=(1, 2))
+            assert set(np.where(reaches)[0]) <= listed
+
+
+def test_chunk_lists_cull_far_chunks():
+    spec = GridSpec(0.5, 32)
+    a = CHUNK
+    xyz = np.zeros((1, 2, a, 3), np.float32)
+    xyz[0, 0] = [-2.0, -2.0, -2.0]  # chunk 0: reaches only brick (1, 1, 1)
+    xyz[0, 1] = [2.0, 2.0, 2.0]  # chunk 1: reaches only brick (2, 2, 2)
+    reach = np.ones((1, 2, a), np.float32)
+    lists = _lists(xyz, reach, spec, 0, 32)[0]
+    assert lists[1 * 16 + 1 * 4 + 1] == {0}
+    assert lists[2 * 16 + 2 * 4 + 2] == {1}
+    assert sum(1 for s in lists if s) == 2  # every other brick is skipped
+
+
+def test_chunk_lists_depth_slab_matches_full_grid(rng):
+    """A slab's lists equal the full grid's lists for the same bricks."""
+    spec = GridSpec(0.5, 16)
+    xyz = rng.uniform(-4, 4, (1, 4, CHUNK, 3)).astype(np.float32)
+    reach = np.ones((1, 4, CHUNK), np.float32)
+    full = _lists(xyz, reach, spec, 0, 16)[0]
+    upper = _lists(xyz, reach, spec, 8, 8)[0]
+    assert upper == full[len(full) // 2 :]
+
+
+def test_interpret_mode_only_on_cpu(monkeypatch):
+    assert pallas_deposit._interpret()  # the tests run on the CPU backend
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert not pallas_deposit._interpret()
+    monkeypatch.setattr(jax, "default_backend", lambda: "metal")
+    with pytest.raises(RuntimeError, match="no lowering"):
+        pallas_deposit._interpret()
 
 
 def test_morton_keys_locality():
@@ -121,7 +97,7 @@ def test_sort_atoms_preserves_set_and_masks(rng):
     radii = jnp.asarray(rng.uniform(0.5, 1.5, (b, vp)).astype(np.float32))
     mask = jnp.asarray(rng.uniform(size=(b, vp)) < 0.7)
 
-    sc, sw, sr, sm = _sort_atoms_spatially(coords, weights, radii, mask, spec, 0)
+    sc, sw, sr, sm = _sort_atoms_spatially(coords, weights, radii, mask, spec)
     # same multiset of (coord, weight, radius, mask) rows
     for bi in range(b):
         orig = np.concatenate(

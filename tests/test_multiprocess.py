@@ -5,7 +5,7 @@ data-parallel voxelize path across the process boundary.
 The in-process 8-device mesh tests (tests/test_parallel.py) exercise the
 sharding math; this one proves the *process-boundary* machinery — coordinator
 handshake, global device discovery, make_array_from_process_local_data, and
-shard_map collectives over gRPC — actually runs (VERDICT round-1 item 6).
+shard_map collectives over gRPC — actually runs.
 The reference has no distributed execution of any kind (SURVEY.md §2.5).
 """
 

@@ -178,8 +178,8 @@ def test_batch_routes_large_v_to_pallas(rng, monkeypatch):
     import molvoxel_tpu.ops.voxelize as vx
 
     b, vp, v, c = 1, 1024, 300, 2
-    monkeypatch.setattr(vx, "NOTRUNC_PALLAS_MIN_ATOMS", 1024)
-    monkeypatch.setattr(vx, "NOTRUNC_PALLAS_MIN_DEPTH", 16)
+    monkeypatch.setattr(vx, "NOTRUNC_KERNEL_MIN_ATOMS", 1024)
+    monkeypatch.setattr(vx, "NOTRUNC_KERNEL_MIN_DIM", 16)
     coords = np.zeros((b, vp, 3), np.float32)
     coords[:, :v] = rng.uniform(-2.5, 2.5, (b, v, 3))
     weights = np.zeros((b, vp, c), np.float32)

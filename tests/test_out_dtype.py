@@ -1,9 +1,8 @@
 """bf16 output lane: tolerance goldens + API plumbing.
 
-The exact ligand path is bound by the f32 grid's HBM write (docs/DESIGN.md
-"write wall"); out_dtype="bfloat16" halves those bytes via an f32-scratch +
-one-aligned-cast-store kernel (ops/pallas_deposit.py _kernel_*_v4_cast) and a
-bf16 einsum on the separable path.  Accuracy contract: accumulation stays
+out_dtype="bfloat16" halves the grid bytes written: the deposit kernel
+accumulates in f32 and narrows only its store (ops/pallas_deposit.py); the
+separable path runs a bf16 einsum.  Accuracy contract: accumulation stays
 f32; only input/output quantization at 2^-8 relative applies — so every
 bf16 grid must match its f32 twin within ~1% relative, and the f32 paths
 must be bit-identical to before (the parity suite enforces that separately).
@@ -63,7 +62,7 @@ def test_bf16_channelwise(density):
 
 
 def test_bf16_small_molecule_packed_path():
-    # vp=64 engages the pack-2 path (ops/batch._choose_pack)
+    # vp=64: the small-molecule bucket
     f32 = _run("gaussian", "pallas", "float32", v=64)
     bf = _run("gaussian", "pallas", "bfloat16", v=64)
     assert bf.dtype == jnp.bfloat16

@@ -1,4 +1,4 @@
-"""Molecule-packing path: small-bucket batches match the unpacked result."""
+"""Small-bucket batches (32/64 atoms) on the deposit kernel match the dense path."""
 
 import jax
 import jax.numpy as jnp
@@ -96,25 +96,20 @@ def test_packed_notrunc_matches_dense(rng):
     np.testing.assert_allclose(np.asarray(got[0]), np.asarray(want_nt), atol=1e-4)
 
 
-def test_choose_pack_fills_lanes_and_channels():
-    from molvoxel_tpu.ops.batch import _choose_pack
-
-    # both paddings filled exactly
-    assert _choose_pack(64, 4) == 2    # 128 lanes, 8 channels
-    assert _choose_pack(64, 1) == 8    # 512 lanes, 8 channels (forward_single)
-    assert _choose_pack(64, 2) == 4
-    assert _choose_pack(32, 1) == 8
-    assert _choose_pack(32, 4) == 4
-    assert _choose_pack(64, 3) == 8    # 24 channels
-    # channel cap: lane-filling fallback
-    assert _choose_pack(64, 13) == 2
-    assert _choose_pack(64, 20) == 1
-    # full-lane molecules: packing measured counterproductive on-chip
-    assert _choose_pack(128, 4) == 1
-    assert _choose_pack(128, 1) == 1
-    assert _choose_pack(96, 1) == 1
-    assert _choose_pack(200, 4) == 1
-    assert _choose_pack(256, 1) == 1
+@pytest.mark.parametrize("vp", [40, 100])
+def test_atom_count_off_chunk_multiple(rng, vp):
+    # the wrapper pads V to a whole number of atom chunks with masked atoms
+    b, c, v = 3, 2, vp - 3
+    coords = np.zeros((b, vp, 3), np.float32)
+    coords[:, :v] = rng.uniform(-3, 3, (b, v, 3))
+    weights = np.zeros((b, vp, c), np.float32)
+    weights[:, :v] = rng.uniform(size=(b, v, c))
+    mask = np.broadcast_to(np.arange(vp) < v, (b, vp))
+    keys = jax.random.split(jax.random.PRNGKey(2), b)
+    args = (jnp.asarray(coords), jnp.asarray(weights), jnp.ones((vp,), jnp.float32), jnp.asarray(mask), None, keys, 1.0)
+    got = voxelize_batch(*args, spec=SPEC, impl="pallas", random_rotation=True)
+    want = voxelize_batch(*args, spec=SPEC, impl="dense", random_rotation=True)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-5)
 
 
 @pytest.mark.parametrize("vp,c,b", [(64, 1, 9), (64, 3, 4), (64, 2, 6), (32, 1, 5)])

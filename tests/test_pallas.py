@@ -1,4 +1,4 @@
-"""Pallas kernel parity vs the dense XLA path (interpret mode on CPU)."""
+"""Pallas deposit kernel parity vs the dense XLA path (interpret mode on CPU)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,8 +9,8 @@ from molvoxel_tpu.ops import voxelize_dense, voxelize_dense_channelwise
 from tests.oracle import voxelize_oracle
 
 from molvoxel_tpu.ops.pallas_deposit import (
-    pallas_supported,
     voxelize_pallas,
+    voxelize_pallas_batch,
     voxelize_pallas_channelwise,
 )
 
@@ -59,7 +59,7 @@ def test_pallas_channelwise_matches_dense(rng, density):
 
 
 def test_pallas_multi_atom_chunk(rng):
-    # Vp = 256 with chunk 64/128 exercises the accumulation loop (vc > 0)
+    # Vp = 256 spans many atom chunks: the per-brick chunk loop accumulates
     coords, weights, radii, mask = padded_cloud(rng, v=200, vp=256, c=3)
     got = np.asarray(voxelize_pallas(coords, weights, radii, spec=SPEC, mask=mask))
     want = np.asarray(voxelize_dense(coords, weights, radii, spec=SPEC, mask=mask))
@@ -67,7 +67,7 @@ def test_pallas_multi_atom_chunk(rng):
 
 
 def test_pallas_nonaligned_hw(rng):
-    # dimension 12 -> HW=144, padded to 256 lanes
+    # dimension 12 is not a multiple of the 8^3 brick: masked edge stores
     spec = GridSpec(resolution=0.5, dimension=12)
     coords, weights, radii, mask = padded_cloud(rng, v=20)
     got = np.asarray(voxelize_pallas(coords, weights, radii, spec=spec, mask=mask))
@@ -76,18 +76,23 @@ def test_pallas_nonaligned_hw(rng):
 
 
 def test_pallas_many_channels(rng):
-    # C=14 -> Cp=16, possibly multiple channel tiles
+    # C=14: one accumulator per channel, all in one program
     coords, weights, radii, mask = padded_cloud(rng, c=14)
     got = np.asarray(voxelize_pallas(coords, weights, radii, spec=SPEC, mask=mask))
     want = np.asarray(voxelize_dense(coords, weights, radii, spec=SPEC, mask=mask))
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-def test_supported_predicate():
-    # the tiled v2 kernel supports all practical grid sizes
-    assert pallas_supported(GridSpec(0.5, 48), 14)
-    assert pallas_supported(GridSpec(0.5, 64), 4)
-    assert pallas_supported(GridSpec(0.5, 128), 32)
+@pytest.mark.parametrize("dim", [7, 12, 20, 24])
+def test_bricks_overhanging_the_grid(rng, dim):
+    # dimensions that are not multiples of the 8^3 brick: masked edge stores
+    spec = GridSpec(resolution=0.5, dimension=dim)
+    coords, weights, radii, mask = padded_cloud(rng, v=40, vp=64, c=3)
+    got = np.asarray(
+        voxelize_pallas_batch(coords[None], weights[None], radii, spec=spec, mask=mask[None])
+    )[0]
+    want = np.asarray(voxelize_dense(coords, weights, radii, spec=spec, mask=mask))
+    np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 def test_pallas_batched_matches_dense(rng):
@@ -134,8 +139,8 @@ def test_pallas_depth_slab(rng):
 
 @pytest.mark.parametrize("vp", [32, 64])
 def test_subchunk_atom_bucket(rng, vp):
-    """vp < 128 (the unbatched API's small-molecule bucket) must pad to one
-    lane chunk internally — regression: nvc=0 reshape crash on real TPU."""
+    """vp of the unbatched API's small-molecule buckets (32/64) deposits
+    exactly, with padded atoms inside the last chunk."""
     from molvoxel_tpu.ops.pallas_deposit import (
         voxelize_pallas, voxelize_pallas_channelwise)
 

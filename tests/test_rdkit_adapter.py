@@ -7,6 +7,7 @@ exercises the explicit conversions when the dependency is present.
 import numpy as np
 import pytest
 
+from molvoxel_tpu.data.fixtures import LIGAND_SDF
 from molvoxel_tpu.data.rdkit_adapter import RDKIT_AVAILABLE
 
 pytestmark = pytest.mark.skipif(not RDKIT_AVAILABLE, reason="rdkit not installed")
@@ -30,7 +31,7 @@ def test_load_and_voxelize():
     from molvoxel_tpu.data import AtomTypeGetter, MolPointCloudMaker, MolWrapper
     from molvoxel_tpu.data.rdkit_adapter import load_rdkit_mol
 
-    rdmol = load_rdkit_mol("/root/reference/test/10gs/10gs_ligand.sdf")
+    rdmol = load_rdkit_mol(str(LIGAND_SDF))
     maker = MolPointCloudMaker(AtomTypeGetter(["C", "N", "O", "S"], unknown=True), None, "features")
     vox = create_voxelizer(resolution=0.5, dimension=16)
     wrapper = MolWrapper(maker, vox)

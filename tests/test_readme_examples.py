@@ -1,6 +1,7 @@
 """The README quick-start snippets must actually run."""
 
 import numpy as np
+from molvoxel_tpu.data.fixtures import LIGAND_SDF
 
 
 def test_quickstart_snippet():
@@ -28,7 +29,7 @@ def test_chemistry_snippet():
     from molvoxel_tpu.data import (AtomTypeGetter, BondTypeGetter,
                                    MolPointCloudMaker, MolWrapper, read_sdf)
 
-    mol = read_sdf("/root/reference/test/10gs/10gs_ligand.sdf")
+    mol = read_sdf(str(LIGAND_SDF))
     maker = MolPointCloudMaker(AtomTypeGetter(["C", "N", "O", "S"], unknown=True),
                                BondTypeGetter.default(), channel_type="features")
     voxelizer = create_voxelizer(resolution=0.5, dimension=16)

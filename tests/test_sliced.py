@@ -1,7 +1,7 @@
 """Full-grid assembly from depth slabs (ops/batch.py voxelize_batch_sliced).
 
-The 256^3 configuration: depths beyond the kernel's VMEM output budget run
-as a sequential slab loop with host assembly — these tests prove the slab
+The 256^3 configuration: batches of grids too large for the device run as
+a sequential slab loop with host assembly — these tests prove the slab
 path is bit-consistent with the single-launch full grid, on every surface
 that composes with it (stream driver, CLI auto-pick, bf16, augmentation).
 """
@@ -72,15 +72,14 @@ def test_slab_assembly_bf16_out(rng):
 
 
 def test_pick_slab_depth():
-    assert pick_slab_depth(GridSpec(0.5, 64)) is None
-    assert pick_slab_depth(GridSpec(0.5, 128)) is None
-    slab = pick_slab_depth(GridSpec(0.5, 256))
-    assert slab is not None and 256 % slab == 0
-    # the picked slab's output tile actually fits the budget
-    from molvoxel_tpu.ops.pallas_deposit import _OUT_BUDGET, _row_tile
-
-    hwt = _row_tile(256 * 256, 256)
-    assert 8 * slab * hwt * 4 <= _OUT_BUDGET
+    limit = 60 * 2**30  # what an 80 GB card gives one JAX process
+    assert pick_slab_depth(GridSpec(0.5, 64), 4, 64, bytes_limit=limit) is None
+    assert pick_slab_depth(GridSpec(0.5, 128), 4, 1, bytes_limit=limit) is None
+    slab = pick_slab_depth(GridSpec(0.5, 256), 4, 64, bytes_limit=limit)
+    assert slab == 64  # largest divisor of 256 whose slab fits an eighth of the memory
+    assert 64 * 4 * slab * 256 * 256 * 4 <= limit // 8
+    # the CPU reports no memory limit and never slices
+    assert pick_slab_depth(GridSpec(0.5, 256)) is None
 
 
 def test_streaming_voxelizer_slab_mode(rng, tmp_path):

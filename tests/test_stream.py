@@ -3,6 +3,7 @@
 import numpy as np
 import pytest
 
+from molvoxel_tpu.data.fixtures import LIGAND_SDF
 from molvoxel_tpu.core import GridSpec
 from molvoxel_tpu.parallel import StreamingVoxelizer, make_mesh
 
@@ -92,7 +93,7 @@ def test_stream_checksum_radii_by_type(tmp_path):
     from molvoxel_tpu.ops.batch import voxelize_batch
     from molvoxel_tpu.parallel.stream import stream_checksum
 
-    rec = open("/root/reference/test/10gs/10gs_ligand.sdf", "rb").read()
+    rec = open(str(LIGAND_SDF), "rb").read()
     path = tmp_path / "lib.sdf"
     path.write_bytes(rec * 4)
     spec = GridSpec(resolution=0.5, dimension=16)

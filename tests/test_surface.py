@@ -8,6 +8,8 @@ paths, so a regression in any of them fails here with a direct message
 instead of somewhere deep in a stream or wrapper test.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -28,12 +30,16 @@ from .test_data import REF_LIGAND, make_mol
 
 
 class TestRouting:
-    def test_default_impl_cpu_is_dense(self):
-        from molvoxel_tpu.ops.voxelize import default_batch_impl, default_impl
+    def test_default_impl_cpu_is_dense(self, monkeypatch):
+        from molvoxel_tpu.ops.voxelize import default_impl
 
         # conftest forces the CPU platform; the auto route must be dense there
         assert default_impl() == "dense"
-        assert default_batch_impl() == default_impl()
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        assert default_impl() == "pallas"
+        monkeypatch.setattr(jax, "default_backend", lambda: "metal")
+        with pytest.raises(RuntimeError, match="no voxelization path"):
+            default_impl()
 
     def test_default_backend_impl_facade(self):
         from molvoxel_tpu.api.voxelizer import default_backend_impl
@@ -42,25 +48,18 @@ class TestRouting:
         assert default_backend_impl() == default_impl()
 
     def test_notrunc_crossover_table(self):
-        # measured routing crossover (docs/DESIGN.md 4a): pallas iff
-        # V >= 1024 AND (Dl >= 96 or dim >= 192)
+        # measured routing (PERF.md): kernel iff f32 AND V >= 1024 AND dim >= 128
         from molvoxel_tpu.ops.voxelize import (
-            NOTRUNC_PALLAS_MIN_ATOMS,
-            NOTRUNC_PALLAS_MIN_DEPTH,
-            NOTRUNC_PALLAS_MIN_DIM,
+            NOTRUNC_KERNEL_MIN_ATOMS,
+            NOTRUNC_KERNEL_MIN_DIM,
             notrunc_use_pallas,
         )
 
-        assert notrunc_use_pallas(4096, 128)  # protein x deep grid
+        assert notrunc_use_pallas(3262, 128)  # protein x deep grid, f32
+        assert not notrunc_use_pallas(3262, 128, "bfloat16")  # separable wins bf16
         assert not notrunc_use_pallas(512, 128)  # too few atoms
-        assert not notrunc_use_pallas(4096, 48)  # grid too small
-        assert notrunc_use_pallas(4096, 256)  # dim alone qualifies
-        # depth slab overrides dim: a shallow slab of a big grid still routes
-        # by the slab depth or the full dim, whichever qualifies
-        assert notrunc_use_pallas(4096, 64, dl=96)
-        assert not notrunc_use_pallas(4096, 64, dl=32)
-        # thresholds themselves are the documented constants
-        assert (NOTRUNC_PALLAS_MIN_ATOMS, NOTRUNC_PALLAS_MIN_DEPTH, NOTRUNC_PALLAS_MIN_DIM) == (1024, 96, 192)
+        assert not notrunc_use_pallas(4096, 64)  # grid too small
+        assert (NOTRUNC_KERNEL_MIN_ATOMS, NOTRUNC_KERNEL_MIN_DIM) == (1024, 128)
 
     def test_voxelize_rejects_unknown_impl(self, rng):
         from molvoxel_tpu.ops.voxelize import voxelize
@@ -72,12 +71,14 @@ class TestRouting:
         with pytest.raises(ValueError, match="unknown impl"):
             voxelize(coords, weights, radii, spec=spec, impl="numba")
 
-    def test_kw_nomask_strips_only_mask(self):
-        from molvoxel_tpu.ops.batch import kw_nomask
+    def test_voxelize_batch_rejects_unknown_impl(self, rng):
+        from molvoxel_tpu.ops.batch import voxelize_batch
 
-        kw = {"mask": 1, "sigma": 0.5, "spec": None}
-        assert kw_nomask(kw) == {"sigma": 0.5, "spec": None}
-        assert "mask" in kw  # input not mutated
+        spec = GridSpec(resolution=0.5, dimension=8)
+        coords = jnp.asarray(rng.uniform(-1, 1, (1, 4, 3)), jnp.float32)
+        keys = jax.random.split(jax.random.PRNGKey(0), 1)
+        with pytest.raises(ValueError, match="unknown impl"):
+            voxelize_batch(coords, jnp.ones((1, 4, 2)), jnp.ones((4,)), None, None, keys, spec=spec, impl="numba")
 
 
 # --------------------------------------------------------------------------
@@ -439,10 +440,23 @@ class TestWrapperVisualize:
 # --------------------------------------------------------------------------
 
 
-def test_enable_compilation_cache(tmp_path):
-    from molvoxel_tpu.utils.timing import enable_compilation_cache
+def test_enable_compilation_cache(tmp_path, monkeypatch):
+    from molvoxel_tpu.utils.timing import _CHECKOUT_CACHE, enable_compilation_cache
 
-    target = tmp_path / "jc"
-    enable_compilation_cache(str(target))
-    assert target.is_dir()
-    assert jax.config.jax_compilation_cache_dir == str(target)
+    before = (jax.config.jax_compilation_cache_dir,
+              jax.config.jax_persistent_cache_min_compile_time_secs)
+    try:
+        # the environment variable wins whenever it is set
+        target = tmp_path / "jc"
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(target))
+        assert enable_compilation_cache() == str(target)
+        assert target.is_dir()
+        assert jax.config.jax_compilation_cache_dir == str(target)
+        # otherwise the cache is <checkout>/.jax_cache, not a home directory
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        assert enable_compilation_cache() == str(_CHECKOUT_CACHE)
+        assert jax.config.jax_compilation_cache_dir == str(_CHECKOUT_CACHE)
+        assert _CHECKOUT_CACHE.parent == Path(__file__).resolve().parents[1]
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before[0])
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", before[1])

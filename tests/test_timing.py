@@ -13,7 +13,7 @@ def test_measure_device_fn_returns_positive_seconds():
         noise = jax.random.normal(key, x.shape) * 1e-6
         return (x + noise) @ x
 
-    per = measure_device_fn(step, iters=5, repeats=2)
+    per = measure_device_fn(step, iters=5)
     assert per >= 0.0
     assert per < 5.0
 

@@ -2,7 +2,7 @@
 
 Runs /root/reference's numpy voxelizer (deps: numpy + scipy only) on the 10gs
 test structures and records inputs + outputs as .npz under tests/goldens/.
-The pytest parity suite (tests/test_parity_golden.py) then asserts the TPU
+The pytest parity suite (tests/test_parity_golden.py) then asserts the
 framework reproduces these within atol 1e-5 (the reference's own reproduction
 tolerance, /root/reference/test/test_run_numpy.py:47).
 
